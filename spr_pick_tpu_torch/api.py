@@ -1,0 +1,249 @@
+"""Programmatic picking/denoising API — the PyTorch port of
+`spr_pick_tpu/api.py`.
+
+    from spr_pick_tpu_torch.api import Picker
+
+    picker = Picker("final-ssdn-gauss.wt")        # or .training; on the GPU
+    picks = picker.pick("mic.mrc")                # DataFrame: name/x/y/score
+    den   = picker.denoise("mic.mrc")             # float32 H,W
+
+Semantics match the JAX package's Picker: the same dense forward, the same
+greedy NMS (K1), the same 30 px border filter and x/y column order as
+`_scores.txt` (train.py:write_scores).  Checkpoints written by the JAX
+package load directly (`utils/checkpoint.py`).
+
+The Picker runs on the GPU: ``device=None`` resolves to ``cuda`` and raises
+when there is none; only an explicit ``device="cpu"`` runs on the CPU.
+``pandas`` is imported only where a DataFrame is built, so `pick_arrays`
+runs without it.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, Iterable, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from spr_pick_tpu_torch.data.loader import load_image
+from spr_pick_tpu_torch.data.micrograph import pad_to_multiple, unpad
+from spr_pick_tpu_torch.denoiser import Denoiser
+from spr_pick_tpu_torch.ops.nms import nms_batch_to_host, nms_to_host
+from spr_pick_tpu_torch.params import ConfigValue, PipelineOutput
+from spr_pick_tpu_torch.steps import eval_step
+from spr_pick_tpu_torch.utils import checkpoint as ckpt
+from spr_pick_tpu_torch.utils.device import resolve_device
+
+ImageLike = Union[str, np.ndarray]
+Picks = Tuple[np.ndarray, np.ndarray]
+
+# Micrographs above this edge (px, after padding) take halo tiling in the
+# JAX package (train.py:152, tile_eval_threshold).
+TILE_EVAL_THRESHOLD = 2048
+_COLUMNS = ["image_name", "x_coord", "y_coord", "score"]
+
+
+class Picker:
+    """Load a checkpoint once, then pick/denoise micrographs.
+
+    ``checkpoint``: `.training` (full state) or `.wt` (weights+cfg) file.
+    ``nms_radius`` defaults to the checkpoint cfg's NMS value,
+    ``threshold`` to the product's 0.02 heatmap floor, ``max_peaks`` to the
+    cfg's, ``border`` to the evaluator's 30 px frame (pass 0 to keep edge
+    picks).  ``seed`` seeds the reparameterisation noise of every forward.
+    """
+
+    def __init__(self, checkpoint: str, mode: str = "joint",
+                 nms_radius: Optional[int] = None, threshold: float = 0.02,
+                 max_peaks: Optional[int] = None, border: int = 30,
+                 seed: int = 0, device=None):
+        self.device = resolve_device(device)
+        if not os.path.exists(checkpoint):
+            raise FileNotFoundError(f"Checkpoint does not exist: {checkpoint}")
+        state = ckpt.load(checkpoint)
+        cfg = state["cfg"]
+        self.denoiser = Denoiser(cfg, mode=state.get("mode") or mode,
+                                 device=self.device)
+        self.denoiser.load_variables(state["trainable"], state["static"])
+        self.nms_radius = int(
+            nms_radius if nms_radius is not None else cfg[ConfigValue.NMS]
+        )
+        self.threshold = float(threshold)
+        self.max_peaks = int(
+            max_peaks if max_peaks is not None
+            else cfg.get(ConfigValue.MAX_PEAKS, 2048)
+        )
+        self.border = int(border)
+        self.seed = int(seed)
+
+    # ------------------------------------------------------------------
+
+    def _forward(self, arrs: List[np.ndarray]):
+        """One dense forward over same-shape micrographs; returns
+        (outputs, original shape)."""
+        square = not self.denoiser.supports_rect_dense
+        padded = []
+        shape = None
+        for a in arrs:
+            p, shape = pad_to_multiple(a, 32, square=square)
+            padded.append(p)
+        if max(padded[0].shape) > TILE_EVAL_THRESHOLD:
+            raise NotImplementedError(
+                f"micrograph of {padded[0].shape} px: above "
+                f"{TILE_EVAL_THRESHOLD} px the JAX package uses halo tiling, "
+                "which the port does not have yet (ROADMAP.md, queue 1, halo "
+                "tiling)"
+            )
+        inp = torch.from_numpy(np.stack(padded)[..., None]).to(self.device)
+        return eval_step(self.denoiser, {"inp": inp}, seed=self.seed), shape
+
+    @staticmethod
+    def _heatmaps(outputs: Dict, shape) -> torch.Tensor:
+        """(B, h, w) view of the detector maps cropped to the original
+        shape, still on the device."""
+        if PipelineOutput.DETECT not in outputs:
+            raise ValueError(
+                "checkpoint has no detector head (denoise-only model); "
+                "use .denoise()"
+            )
+        return outputs[PipelineOutput.DETECT][:, : shape[0], : shape[1], 0]
+
+    def _nms(self, heatmap: torch.Tensor) -> Picks:
+        return nms_to_host(heatmap, self.nms_radius, threshold=self.threshold,
+                           max_peaks=self.max_peaks)
+
+    def pick_arrays(self, image: ImageLike, standardize: bool = False
+                    ) -> Tuple[np.ndarray, np.ndarray, Tuple[int, int]]:
+        """Pick one micrograph without pandas -> (scores, coords as (x, y)
+        in NMS order, original shape): what `pick` turns into its frame."""
+        outputs, shape = self._forward([self._load(image, standardize)])
+        scores, coords = self._nms(self._heatmaps(outputs, shape)[0])
+        return scores, coords, shape
+
+    def pick(self, image: ImageLike, name: Optional[str] = None,
+             standardize: bool = False):
+        """Pick one micrograph -> DataFrame(image_name, x_coord, y_coord,
+        score), sorted by descending score, border-filtered — the
+        evaluator's _scores.txt semantics (incl. x/y column order)."""
+        if name is None:
+            name = self._name_for(image)
+        return self._picks_frame(name, *self.pick_arrays(image, standardize))
+
+    def _picks_frame(self, name, scores, coords, shape):
+        """Border-filter + column mapping (train.py:write_scores:
+        x = coords[:, 1])."""
+        import pandas as pd
+
+        b = self.border
+        x_max, y_max = shape[0] - b, shape[1] - b
+        keep = (
+            (coords[:, 1] > b) & (coords[:, 1] < x_max)
+            & (coords[:, 0] > b) & (coords[:, 0] < y_max)
+        ) if b > 0 else np.ones(len(scores), bool)
+        return pd.DataFrame(
+            {
+                "image_name": name,
+                "x_coord": coords[keep, 1].astype(int),
+                "y_coord": coords[keep, 0].astype(int),
+                "score": scores[keep],
+            }
+        )
+
+    def pick_many(self, images: Iterable[ImageLike],
+                  standardize: bool = False, batch_size: int = 1,
+                  names: Optional[Iterable[str]] = None):
+        """Pick several micrographs; one concatenated DataFrame.
+
+        ``batch_size`` > 1 groups consecutive SAME-SHAPE micrographs into
+        one dense forward and one batched NMS launch.  ``names``: optional
+        per-image output names; defaults to each path's basename.
+        """
+        import pandas as pd
+
+        images = list(images)
+        if names is None:
+            names = [self._name_for(im) for im in images]
+        else:
+            names = list(names)
+            if len(names) != len(images):
+                raise ValueError(f"{len(names)} names for {len(images)} images")
+        frames = []
+        if batch_size <= 1:
+            frames = [
+                self.pick(im, name=nm, standardize=standardize)
+                for im, nm in zip(images, names)
+            ]
+        else:
+            i = 0
+            carried = None  # shape-mismatched load carried to the next group
+            while i < len(images):
+                first = carried if carried is not None else self._load(
+                    images[i], standardize
+                )
+                carried = None
+                group, arrs = [names[i]], [first]
+                while len(group) < batch_size and i + len(group) < len(images):
+                    nxt = self._load(images[i + len(group)], standardize)
+                    if nxt.shape != first.shape:
+                        carried = nxt  # don't decode it twice
+                        break
+                    group.append(names[i + len(group)])
+                    arrs.append(nxt)
+                frames.extend(self._pick_group(group, arrs))
+                i += len(group)
+        if not frames:
+            return pd.DataFrame(columns=_COLUMNS)
+        return pd.concat(frames, ignore_index=True)
+
+    def _pick_group(self, names, arrs):
+        """One dense forward + one batched NMS over a same-shape group."""
+        outputs, shape = self._forward(arrs)
+        picks = nms_batch_to_host(
+            self._heatmaps(outputs, shape), self.nms_radius,
+            threshold=self.threshold, max_peaks=self.max_peaks,
+        )
+        return [
+            self._picks_frame(name, scores, coords, shape)
+            for name, (scores, coords) in zip(names, picks)
+        ]
+
+    @staticmethod
+    def _name_for(image: ImageLike) -> str:
+        return (
+            os.path.splitext(os.path.basename(image))[0]
+            if isinstance(image, str) else "image"
+        )
+
+    def _load(self, image: ImageLike, standardize: bool) -> np.ndarray:
+        if isinstance(image, str):
+            return load_image(image, standardize=standardize)
+        img = np.ascontiguousarray(image, np.float32)
+        if img.ndim != 2:
+            raise ValueError(f"expected a 2-D micrograph, got {img.shape}")
+        return img
+
+    def denoise(self, image: ImageLike,
+                standardize: bool = False) -> np.ndarray:
+        """Denoise one micrograph -> float32 H,W (original shape)."""
+        outputs, shape = self._forward([self._load(image, standardize)])
+        return self._denoised(outputs, shape)
+
+    def process(self, image: ImageLike, name: Optional[str] = None,
+                standardize: bool = False):
+        """ONE dense forward -> (picks DataFrame, denoised float32 H,W)."""
+        if name is None:
+            name = self._name_for(image)
+        outputs, shape = self._forward([self._load(image, standardize)])
+        den = self._denoised(outputs, shape)
+        scores, coords = self._nms(self._heatmaps(outputs, shape)[0])
+        return self._picks_frame(name, scores, coords, shape), den
+
+    @staticmethod
+    def _denoised(outputs, shape) -> np.ndarray:
+        key = (
+            PipelineOutput.IMG_DENOISED
+            if PipelineOutput.IMG_DENOISED in outputs
+            else PipelineOutput.IMG_MU
+        )
+        return unpad(outputs[key][0, :, :, 0].cpu().numpy(), shape)

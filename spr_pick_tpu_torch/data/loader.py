@@ -1,0 +1,93 @@
+"""Micrograph image loading + normalisation.
+
+The PyTorch port's copy of `spr_pick_tpu/data/loader.py` (parity:
+`spr_pick/utils/loader.py:49-142` and `spr_pick/utils/image.py`).  The
+normalisation is load-critical for pick parity:
+
+  MRC:  min-max normalise to [0,1] float32, scale *255, truncate to uint8,
+        later divided by 255 on the way to the model.  The uint8
+        quantisation is reproduced exactly with numpy (the JAX package's
+        optional C++ quantiser is bit-identical to this path) and the result
+        is returned as float32 in [0,1].
+  PNG/JPEG: `unquantize` re-expands 8-bit to [-3, 3].
+  TIFF: raw values (optionally standardised).
+
+Images are plain numpy float32 H,W arrays.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from spr_pick_tpu_torch.data import mrc
+
+
+def unquantize(x: np.ndarray, mi=-3, ma=3, dtype=np.float32) -> np.ndarray:
+    x = x.astype(dtype)
+    return x * (ma - mi) / 255 + mi
+
+
+def minmax_quantize_u8(image: np.ndarray) -> np.ndarray:
+    """cv2.NORM_MINMAX to [0,1] then *255 -> uint8 truncation.
+
+    Parity: loader.py:57-58 (`cv2.normalize(..., alpha=0, beta=1,
+    NORM_MINMAX, CV_32F)` followed by `(image*255).astype(np.uint8)`).
+    """
+    image = image.astype(np.float32)
+    lo = float(image.min())
+    hi = float(image.max())
+    if hi > lo:
+        norm = (image - lo) / (hi - lo)
+    else:
+        norm = np.zeros_like(image)
+    return (norm * 255).astype(np.uint8)
+
+
+def load_mrc(path: str, standardize: bool = False) -> np.ndarray:
+    """MRC -> min-max-quantised image as float32 in [0, 1].
+
+    Parity: loader.py:49-59 + the downstream `to_tensor` /255 division.
+    """
+    array, header, _ = mrc.read(path)
+    image = np.asarray(array, dtype=np.float32)
+    if standardize:
+        image = image - float(header["amean"])
+        image /= float(header["rms"])
+    return minmax_quantize_u8(image).astype(np.float32) / 255.0
+
+
+def _load_pil_array(path: str) -> np.ndarray:
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return np.array(im)
+
+
+def load_tiff(path: str, standardize: bool = False) -> np.ndarray:
+    x = _load_pil_array(path).astype(np.float32)
+    if standardize:
+        x = (x - x.mean()) / x.std()
+    return x
+
+
+def load_png(path: str, standardize: bool = False) -> np.ndarray:
+    x = unquantize(_load_pil_array(path))
+    if standardize:
+        x = (x - x.mean()) / x.std()
+    return x
+
+
+def load_image(path: str, standardize: bool = False) -> np.ndarray:
+    """Dispatch on extension.  Returns float32 H,W (grayscale)."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".mrc":
+        img = load_mrc(path, standardize=standardize)
+    elif ext in (".png", ".jpg", ".jpeg"):
+        img = load_png(path, standardize=standardize)
+    else:
+        img = load_tiff(path, standardize=standardize)
+    if img.ndim == 3:
+        img = img.mean(axis=-1)
+    return np.ascontiguousarray(img, dtype=np.float32)

@@ -1,0 +1,112 @@
+"""MRC2000 image I/O.
+
+Parity: `spr_pick/utils/mrc.py:105-225` (hand-rolled header parse/write,
+modes 0/1/2/3/4/6/16).  Implemented with a numpy structured dtype over the
+1024-byte header instead of `struct` — same on-disk layout, zero-copy reads.
+
+The PyTorch port's copy of `spr_pick_tpu/data/mrc.py` (read, parse, write).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+
+# MRC2000 / IMOD header layout (1024 bytes).
+HEADER_DTYPE = np.dtype(
+    [
+        ("nx", "<i4"), ("ny", "<i4"), ("nz", "<i4"),
+        ("mode", "<i4"),
+        ("nxstart", "<i4"), ("nystart", "<i4"), ("nzstart", "<i4"),
+        ("mx", "<i4"), ("my", "<i4"), ("mz", "<i4"),
+        ("xlen", "<f4"), ("ylen", "<f4"), ("zlen", "<f4"),
+        ("alpha", "<f4"), ("beta", "<f4"), ("gamma", "<f4"),
+        ("mapc", "<i4"), ("mapr", "<i4"), ("maps", "<i4"),
+        ("amin", "<f4"), ("amax", "<f4"), ("amean", "<f4"),
+        ("ispg", "<i4"), ("next", "<i4"), ("creatid", "<i2"),
+        ("extra1", "V30"),
+        ("nint", "<i2"), ("nreal", "<i2"),
+        ("extra2", "V20"),
+        ("imodStamp", "<i4"), ("imodFlags", "<i4"),
+        ("idtype", "<i2"), ("lens", "<i2"),
+        ("nd1", "<i2"), ("nd2", "<i2"), ("vd1", "<i2"), ("vd2", "<i2"),
+        ("tiltangles", "<f4", (6,)),
+        ("xorg", "<f4"), ("yorg", "<f4"), ("zorg", "<f4"),
+        ("cmap", "S4"), ("stamp", "S4"),
+        ("rms", "<f4"),
+        ("nlabl", "<i4"),
+        ("labels", "S800"),
+    ]
+)
+assert HEADER_DTYPE.itemsize == 1024
+
+MODE_TO_DTYPE = {
+    0: np.dtype(np.int8),
+    1: np.dtype(np.int16),
+    2: np.dtype(np.float32),
+    3: np.dtype("2h"),
+    4: np.dtype(np.complex64),
+    6: np.dtype(np.uint16),
+    16: np.dtype("3B"),
+}
+
+
+def parse(content: bytes) -> Tuple[np.ndarray, np.void, bytes]:
+    """Parse MRC bytes -> (array, header record, extended header bytes)."""
+    header = np.frombuffer(content[:1024], dtype=HEADER_DTYPE)[0]
+    extbytes = int(header["next"])
+    start = 1024 + extbytes
+    extended_header = content[1024:start]
+
+    mode = int(header["mode"])
+    if mode not in MODE_TO_DTYPE:
+        raise ValueError(f"Unknown MRC dtype mode: {mode}")
+    dtype = MODE_TO_DTYPE[mode]
+
+    nx, ny, nz = int(header["nx"]), int(header["ny"]), int(header["nz"])
+    array = np.frombuffer(content[start:], dtype=dtype)[: nz * ny * nx]
+    array = array.reshape(nz, ny, nx)
+    if nz == 1:
+        array = array[0]
+    return array, header, extended_header
+
+
+def read(path: str):
+    with open(path, "rb") as f:
+        return parse(f.read())
+
+
+def write(f, array: np.ndarray, header=None, extended_header: bytes = b"",
+          ax: float = 1, ay: float = 1, az: float = 1):
+    """Write a float32 MRC file.  Parity: mrc.py:192-224."""
+    array3 = array.astype(np.float32)
+    if array3.ndim == 2:
+        array3 = array3[None]
+    if header is None:
+        header = np.zeros((), dtype=HEADER_DTYPE)
+        header["nx"], header["ny"], header["nz"] = (
+            array3.shape[2], array3.shape[1], array3.shape[0],
+        )
+        header["mode"] = 2
+        header["mx"], header["my"], header["mz"] = 1, 1, 1
+        header["xlen"], header["ylen"], header["zlen"] = ax, ay, az
+        header["mapc"], header["mapr"], header["maps"] = 1, 2, 3
+        header["amin"], header["amax"], header["amean"] = (
+            array3.min(), array3.max(), array3.mean(),
+        )
+        header["next"] = len(extended_header)
+        header["rms"] = array3.std()
+        header = header[()]
+
+    close = False
+    if isinstance(f, str):
+        f = open(f, "wb")
+        close = True
+    try:
+        f.write(np.asarray(header, dtype=HEADER_DTYPE).tobytes())
+        f.write(extended_header)
+        f.write(array3.tobytes())
+    finally:
+        if close:
+            f.close()

@@ -1,0 +1,93 @@
+"""Joint denoise + detect network.
+
+PyTorch port of `spr_pick_tpu/models/joint.py` (parity:
+`spr_pick/models/joint_network_v2.py:437-561`).  ``dense`` is a forward
+argument: the same parameters give the per-crop logit (strided) or the
+per-pixel map (dilated, the reference's ``fill()``).  Only the dilated
+dense implementation is ported; the shift-and-stitch one is a later slice.
+Public tensors are NHWC, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from spr_pick_tpu_torch.models import resnet
+from spr_pick_tpu_torch.models.resnet import (
+    BN_EPS,
+    LinearClassifier,
+    ResNet8,
+    batch_norm,
+)
+from spr_pick_tpu_torch.models.unet import BlindspotUNet
+
+
+class Detector(nn.Module):
+    """BatchNorm(1ch) -> ResNet8(bn=True) -> 1x1 classifier.
+
+    Parity: joint_network_v2.py:543-561.  Returns float32 logits, NHWC.
+    """
+
+    def __init__(self, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.input_bn = nn.BatchNorm2d(1, eps=BN_EPS)
+        self.features = ResNet8(bn=True, dtype=dtype)
+        self.classifier = LinearClassifier(self.features.latent_dim)
+
+    def forward(self, x: torch.Tensor, dense: bool = False) -> torch.Tensor:
+        x = batch_norm(x.permute(0, 3, 1, 2), self.input_bn, self.dtype)
+        out = self.classifier(self.features(x, dense))
+        return out.float().permute(0, 2, 3, 1)
+
+
+class JointNetwork(nn.Module):
+    """Blind-spot U-Net (mu | A) -> reparameterised sample -> detector.
+
+    ``forward`` returns ``(out_stats, detect_logits)``:
+      * out_stats: B,H,W,out_channels with [..., 0:in] = mu and the rest = A
+        (sigma_x = A**2), parity joint_network_v2.py:469-475,509-532;
+      * detect_logits: per-crop (strided) or per-pixel (dense) logits.
+
+    The reparameterisation noise ``eps`` is passed in, or drawn from
+    ``generator`` (the reference always samples, also in eval).
+    """
+
+    def __init__(self, in_channels: int = 1, out_channels: int = 2,
+                 blindspot: bool = True, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.in_channels = in_channels
+        self.out_channels = out_channels
+        self.denoise_branch = BlindspotUNet(
+            in_channels=in_channels, out_channels=out_channels,
+            blindspot=blindspot, levels=5, dtype=dtype,
+        )
+        self.detector = Detector(dtype=dtype)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.denoise_branch.reset_parameters(generator)
+        resnet.reset_parameters(self.detector, generator)
+
+    def sample(self, out_stats: torch.Tensor, eps: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """z = mu + eps * A**2 from the U-Net's float32 output."""
+        c = self.in_channels
+        mu_x = out_stats[..., 0:c]
+        # Leading in_channels of A scale the sample (the reference's
+        # reparameterize assumes out_channels = 2 * in_channels).
+        sigma_x = out_stats[..., c:self.out_channels][..., 0:c] ** 2
+        if eps is None:
+            eps = torch.randn(mu_x.shape, generator=generator,
+                              device=mu_x.device, dtype=mu_x.dtype)
+        return mu_x + eps * sigma_x
+
+    def forward(self, x: torch.Tensor, dense: bool = False,
+                eps: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        out_stats = self.denoise_branch(x)
+        z = self.sample(out_stats, eps, generator)
+        return out_stats, self.detector(z, dense)

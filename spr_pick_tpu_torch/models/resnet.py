@@ -1,0 +1,171 @@
+"""Topaz-style ResNet8 feature extractor and its 1x1 classifier head.
+
+PyTorch port of `spr_pick_tpu/models/resnet.py` (parity:
+`spr_pick/models/feature_extractor.py`, `spr_pick/models/classifier.py`).
+ResNet6 and ResNet16 belong to a later slice.
+
+Every layer knows its accumulated input stride (``dense_factor``) at
+construction; ``forward(x, dense=True)`` runs the same parameters as the
+dilated stride-1 network (the reference's ``fill()``): the input is
+zero-padded by ``width // 2`` and every conv stays VALID.
+
+BatchNorm always uses its running statistics (eval mode: the port has no
+training yet), computed in float32 and cast back to the compute dtype.
+All tensors are NCHW.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from spr_pick_tpu_torch.models.blindspot import conv2d, torch_conv_init_
+
+BN_EPS = 1e-5  # torch BatchNorm2d default, flax epsilon=1e-5
+
+
+def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d,
+               dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """Inference BatchNorm in float32, output in the compute dtype."""
+    y = F.batch_norm(x.float(), bn.running_mean, bn.running_var, bn.weight,
+                     bn.bias, training=False, eps=BN_EPS)
+    return y.to(dtype or torch.float32)
+
+
+class BasicConv2d(nn.Module):
+    """conv -> [bn] -> relu, VALID padding.  Parity: feature_extractor.py:279-324."""
+
+    def __init__(self, nin: int, features: int, kernel_size: int,
+                 dilation: int = 1, stride: int = 1, bn: bool = False,
+                 dense_factor: int = 1, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dilation = dilation
+        self.stride = stride
+        self.dense_factor = dense_factor
+        self.dtype = dtype
+        self.conv = nn.Conv2d(nin, features, kernel_size, bias=not bn)
+        self.bn = nn.BatchNorm2d(features, eps=BN_EPS) if bn else None
+
+    def forward(self, x: torch.Tensor, dense: bool = False) -> torch.Tensor:
+        d = self.dilation * (self.dense_factor if dense else 1)
+        s = 1 if dense else self.stride
+        y = conv2d(x, self.conv, self.dtype, stride=s, dilation=d)
+        if self.bn is not None:
+            y = batch_norm(y, self.bn, self.dtype)
+        return F.relu(y)
+
+
+class ResidA(nn.Module):
+    """Residual block: conv3 -> conv3(dilated[, strided]) + cropped skip.
+
+    Parity: feature_extractor.py:326-415.  The skip path crops
+    ``edge = d_conv0 + d_conv1`` pixels per side (the two VALID convs'
+    receptive loss, dilations included), then applies a 1x1 projection (if
+    nin != nout) or stride-subsampling.
+    """
+
+    def __init__(self, nin: int, nhidden: int, nout: int, dilation: int = 1,
+                 stride: int = 1, bn: bool = False, dense_factor: int = 1,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dilation = dilation
+        self.stride = stride
+        self.dense_factor = dense_factor
+        self.dtype = dtype
+        self.conv0 = nn.Conv2d(nin, nhidden, 3, bias=not bn)
+        self.bn0 = nn.BatchNorm2d(nhidden, eps=BN_EPS) if bn else None
+        self.conv1 = nn.Conv2d(nhidden, nout, 3, bias=not bn)
+        self.proj = nn.Conv2d(nin, nout, 1, bias=False) if nin != nout else None
+        self.bn1 = nn.BatchNorm2d(nout, eps=BN_EPS) if bn else None
+
+    def forward(self, x: torch.Tensor, dense: bool = False) -> torch.Tensor:
+        f = self.dense_factor if dense else 1
+        d0, d1 = f, self.dilation * f
+        s = 1 if dense else self.stride
+
+        h = conv2d(x, self.conv0, self.dtype, dilation=d0)
+        if self.bn0 is not None:
+            h = batch_norm(h, self.bn0, self.dtype)
+        h = F.relu(h)
+        y = conv2d(h, self.conv1, self.dtype, stride=s, dilation=d1)
+
+        edge = d0 + d1
+        xc = x[:, :, edge:-edge, edge:-edge]
+        if self.proj is not None:
+            xc = conv2d(xc, self.proj, self.dtype, stride=s)
+        elif s > 1:
+            xc = xc[:, :, ::s, ::s]
+
+        y = y + xc.to(y.dtype)
+        if self.bn1 is not None:
+            y = batch_norm(y, self.bn1, self.dtype)
+        return F.relu(y)
+
+
+class ResNet8(nn.Module):
+    """Topaz ResNet8: RF width 63, total stride 4.
+
+    Parity: feature_extractor.py:102-144 (pooling=None path: stride=2).
+    """
+
+    # Receptive field of the (kernel, stride) stack (7,2) (7,1) (7,2) (7,1)
+    # (3,1), ResidA counted as one 7-wide layer (2*dilation + 3); the JAX
+    # package derives it with utils/schedule.py:insize_from_outsize.
+    width = 63
+
+    def __init__(self, units: Sequence[int] = (32, 64, 128), bn: bool = True,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        u = units
+        self.latent_dim = u[2]
+        self.layer0 = BasicConv2d(1, u[0], 7, stride=2, bn=bn, dense_factor=1,
+                                  dtype=dtype)
+        self.layer1 = ResidA(u[0], u[0], u[0], dilation=2, bn=bn,
+                             dense_factor=2, dtype=dtype)
+        self.layer2 = ResidA(u[0], u[0], u[1], dilation=2, stride=2, bn=bn,
+                             dense_factor=2, dtype=dtype)
+        self.layer3 = ResidA(u[1], u[1], u[1], dilation=2, bn=bn,
+                             dense_factor=4, dtype=dtype)
+        self.layer4 = BasicConv2d(u[1], u[2], 3, bn=bn, dense_factor=4,
+                                  dtype=dtype)
+
+    def forward(self, x: torch.Tensor, dense: bool = False) -> torch.Tensor:
+        if dense:
+            p = self.width // 2
+            x = F.pad(x, (p, p, p, p))
+        for layer in (self.layer0, self.layer1, self.layer2, self.layer3,
+                      self.layer4):
+            x = layer(x, dense)
+        return x
+
+
+class LinearClassifier(nn.Module):
+    """1x1-conv head, float32.  Parity: classifier.py:7-38.
+
+    Unlike the flax module, it does not own the feature extractor: the
+    extractor is the caller's sibling submodule (`Detector.features`), which
+    is where the flax parameter tree keeps it too.
+    """
+
+    def __init__(self, nin: int):
+        super().__init__()
+        self.classifier = nn.Conv2d(nin, 1, 1)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        return conv2d(z, self.classifier, None)
+
+
+def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
+    """Seeded init of a ResNet/classifier subtree: torch's default conv
+    init with zero biases (the flax TORCH_CONV_DEFAULT), BatchNorm at
+    identity with running stats (0, 1)."""
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            torch_conv_init_(m.weight, generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()

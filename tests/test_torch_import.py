@@ -1,0 +1,87 @@
+"""The PyTorch port stands alone: it imports nothing of the JAX package
+(nor jax, flax or optax), runs on the GPU unless asked for the CPU, and
+sends CPU tensors to K1's plain version."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from spr_pick_tpu_torch import cfg
+from spr_pick_tpu_torch.api import Picker
+from spr_pick_tpu_torch.denoiser import Denoiser
+from spr_pick_tpu_torch.ops import nms_cuda
+from spr_pick_tpu_torch.params import ConfigValue, NoiseAlgorithm, NoiseValue
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "spr_pick_tpu_torch"
+
+_CHILD = r"""
+import importlib, pkgutil, sys
+import spr_pick_tpu_torch
+for m in pkgutil.walk_packages(spr_pick_tpu_torch.__path__, "spr_pick_tpu_torch."):
+    importlib.import_module(m.name)
+bad = sorted(
+    k for k in sys.modules
+    if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "spr_pick_tpu")
+)
+print("IMPORTED", len([k for k in sys.modules if k.startswith("spr_pick_tpu_torch")]))
+print("BAD", bad)
+"""
+
+
+def test_port_imports_no_jax_in_a_fresh_process():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", _CHILD], cwd=str(REPO),
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+    n = int(re.search(r"IMPORTED (\d+)", out.stdout).group(1))
+    assert n >= 20  # every submodule was imported
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(?:from|import)\s+(?:spr_pick_tpu(?!_torch)\b|jax\b|jaxlib\b|"
+    r"flax\b|optax\b)",
+    re.MULTILINE,
+)
+
+
+def test_sources_import_nothing_of_the_jax_package():
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 20
+    offenders = [str(f) for f in files if _FORBIDDEN.search(f.read_text())]
+    assert offenders == []
+
+
+def test_picker_defaults_to_the_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Picker("missing.wt")
+
+
+def test_denoiser_defaults_to_the_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    c = cfg.base()
+    c[ConfigValue.ALGORITHM] = NoiseAlgorithm.SELFSUPERVISED_DENOISING
+    c[ConfigValue.NOISE_VALUE] = NoiseValue.UNKNOWN_CONSTANT
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Denoiser(c)
+    assert Denoiser(c, device="cpu").device == torch.device("cpu")
+
+
+def test_k1_wrapper_sends_cpu_tensors_to_the_plain_version():
+    x = torch.rand(2, 40, 50, generator=torch.Generator().manual_seed(0))
+    before = nms_cuda.greedy_nms_cuda.launches
+    got = nms_cuda.greedy_nms(x, 4, 0.5, 64)
+    want = nms_cuda.greedy_nms_plain(x, 4, 0.5, 64)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert nms_cuda.greedy_nms_cuda.launches == before
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        nms_cuda.greedy_nms_cuda(x, 4, 0.5, 64)
+    assert nms_cuda.greedy_nms_cuda.launches == before
