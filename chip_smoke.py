@@ -9,11 +9,16 @@ Needs one CUDA GPU and the CUDA toolkit (``nvcc``); builds K1 from
 nothing of the JAX package.  Phases, each of which raises on failure (the
 script then exits nonzero and prints no result):
 
-  1. build K1;
+  1. build K1 (its pre-pass and greedy-chain kernels at tile edges 32, 64,
+     128 and 256) and print what ptxas reports for each;
   2. K1 against its plain version on the card, exact equality: 1024^2
      random, quantised plateaus, constant, saturated at 1 - 1e-4, with
-     suppressed seeds, odd 1000x1017, a (4, 1024, 1024) batch in one launch,
-     and a capped map that triggers the retry;
+     suppressed seeds, odd 1000x1017, a (4, 1024, 1024) batch in one call,
+     equal peaks across tile corners and edges, radius 0 and radius 40,
+     maps smaller than a tile (5x7, 1x300), threshold -inf on negative
+     values with +-0.0, the strided crop the Picker passes, 4096x5760 and
+     8192^2 (tile edge 64) with planted peaks, and a capped map that
+     triggers the retry;
   3. the main path: a seeded full-width JointNetwork (ssdn, gauss, const)
      written as a `.wt` with the port's writer, a synthetic 1024^2 MRC, and
      ``Picker(wt).pick_arrays`` in bf16 — K1's launch count must grow;
@@ -25,8 +30,11 @@ script then exits nonzero and prints no result):
      tests/test_bf16_parity.py, with the MIN_MATCHED floor that random
      weights allow), and the same comparison for planted faults in the bf16
      path, which shows what the floor catches;
-  5. timings (median of 5 runs with their spread): K1 on the main path's
-     1024^2 map and on a (4, 1024^2) batch, the plain version, the dense
+  5. K1 against its plain version on a 4096x5760 map made of the main
+     path's map, then timings (median of 5 runs with their spread): K1 on
+     the main path's 1024^2 map, on a (4, 1024^2) batch and on the
+     4096x5760 map, each with its pre-pass and greedy chain apart (from
+     torch.profiler) and microseconds a pick; the plain version, the dense
      forward at 1024^2 bf16 with its U-Net and detector parts, and pick
      micrographs/s; then one pick under torch.profiler for the device's
      busy time and idle share.
@@ -45,6 +53,7 @@ the kernels JSON line, and the result line
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -58,6 +67,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 SIZE = 1024          # the bench micrograph edge (bench.py)
 PARITY_SHAPE = (250, 300)  # float32 card-vs-CPU parity, off the 32-px grid
+BIG_SHAPE = (4096, 5760)   # a full micrograph, the size halo tiling hands K1
 THRESHOLD = 0.02     # Picker's heatmap floor
 STAR_THRESHOLD = 0.13
 MARGIN = 0.02
@@ -121,6 +131,31 @@ def host_ms(fn, runs=RUNS):
     return out
 
 
+def kernel_ms(fn, names, runs=RUNS):
+    """Per-run device time of each kernel whose name holds one of ``names``,
+    from torch.profiler, after one warm-up; each must run once a run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    out = {n: [] for n in names}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for n in names:
+                if n in e.name:
+                    out[n].append((e.time_range.end - e.time_range.start) / 1e3)
+    for n, ms in out.items():
+        if len(ms) != runs:
+            raise AssertionError(f"the profiler saw {len(ms)} {n} kernels in "
+                                 f"{runs} runs")
+    return out
+
+
 def micrograph(shape, seed: int) -> np.ndarray:
     """Noise with planted Gaussian particles (radius ~6 px) in the leading
     square of an (H, W) or square micrograph."""
@@ -137,6 +172,31 @@ def micrograph(shape, seed: int) -> np.ndarray:
 # Phase 2: K1 against its plain version
 # ---------------------------------------------------------------------------
 
+def planted(g, h, w, n, seed: int):
+    """A (1, h, w) map below THRESHOLD but for ``n`` planted peaks in
+    (0.05, 0.95), so that the plain version, which syncs once a pick, stays
+    fast on the largest maps."""
+    rng = np.random.RandomState(seed)
+    x = torch.rand(1, h, w, device="cuda", generator=g) * 0.015
+    ys = torch.from_numpy(rng.randint(0, h, n)).cuda()
+    xs = torch.from_numpy(rng.randint(0, w, n)).cuda()
+    x[0, ys, xs] = torch.from_numpy(
+        rng.rand(n).astype(np.float32) * 0.9 + 0.05).cuda()
+    return x
+
+
+def tile_corners(g):
+    """1024^2 below THRESHOLD but for equal peaks on both sides of every
+    tile corner of the 32-px grid and on a tile edge: ties across tiles."""
+    x = torch.rand(1, SIZE, SIZE, device="cuda", generator=g) * 0.015
+    c = torch.arange(32, SIZE - 64, 64, device="cuda")
+    x[0, c[:, None] - 1, c[None, :] - 1] = 0.9
+    x[0, c[:, None], c[None, :]] = 0.9
+    x[0, c[:, None] - 1, c[None, :] + 32] = 0.8
+    x[0, c[:, None], c[None, :] + 31] = 0.8
+    return x
+
+
 def check_k1(nms_cuda, nms, radius: int) -> float:
     g = torch.Generator(device="cuda").manual_seed(SEED)
 
@@ -145,34 +205,64 @@ def check_k1(nms_cuda, nms, radius: int) -> float:
 
     saturated = torch.sigmoid(8 * torch.randn(1, SIZE, SIZE, device="cuda",
                                               generator=g))
+    signed = -torch.randn(1, SIZE, SIZE, device="cuda", generator=g).abs()
+    signed[rand(1, SIZE, SIZE) < 0.05] = 0.0
+    signed[rand(1, SIZE, SIZE) < 0.05] = -0.0
+    padded = rand(2, SIZE + 32, SIZE + 64, 1)
+    r = radius
+    # (name, maps, suppressed, threshold, radius)
     cases = [
-        ("random 1024^2", rand(1, SIZE, SIZE), None, THRESHOLD),
-        ("plateaus", torch.floor(rand(1, SIZE, SIZE) * 4) / 4, None, 0.2),
+        ("random 1024^2", rand(1, SIZE, SIZE), None, THRESHOLD, r),
+        ("plateaus", torch.floor(rand(1, SIZE, SIZE) * 4) / 4, None, 0.2, r),
         ("constant", torch.full((1, SIZE, SIZE), 0.5, device="cuda"), None,
-         THRESHOLD),
-        ("saturated 1-1e-4", saturated.clamp(1e-4, 1 - 1e-4), None, THRESHOLD),
+         THRESHOLD, r),
+        ("saturated 1-1e-4", saturated.clamp(1e-4, 1 - 1e-4), None,
+         THRESHOLD, r),
         ("suppressed seeds", rand(1, SIZE, SIZE), rand(1, SIZE, SIZE) < 0.2,
-         THRESHOLD),
-        ("odd 1000x1017", rand(1, 1000, 1017), None, THRESHOLD),
-        ("batch (4, 1024, 1024)", rand(4, SIZE, SIZE), None, THRESHOLD),
+         THRESHOLD, r),
+        ("odd 1000x1017", rand(1, 1000, 1017), None, THRESHOLD, r),
+        ("batch (4, 1024, 1024)", rand(4, SIZE, SIZE), None, THRESHOLD, r),
+        ("tile corners and edges 1024^2", tile_corners(g), None, THRESHOLD,
+         r),
+        ("radius 0, 1024^2 with 5000 peaks", planted(g, SIZE, SIZE, 5000, 1),
+         None, THRESHOLD, 0),
+        ("radius 40, 1024^2", rand(1, SIZE, SIZE), None, THRESHOLD, 40),
+        ("sub-tile 5x7", rand(3, 5, 7), None, 0.1, 2),
+        ("one row 1x300", rand(2, 1, 300), None, 0.1, 3),
+        ("threshold -inf, negative with +-0.0, 1024^2", signed, None,
+         float("-inf"), r),
+        ("strided crop of (2, 1056, 1088, 1) to 1000x1017",
+         padded[:, :1000, :1017, 0], None, THRESHOLD, r),
+        ("4096x5760 with 400 peaks (T = 32)", planted(g, 4096, 5760, 400, 2),
+         None, THRESHOLD, r),
+        ("8192^2 with 400 peaks (T = 64)", planted(g, 8192, 8192, 400, 3),
+         None, THRESHOLD, r),
     ]
+    optin = nms_cuda.library.smem_optin(0)
     err = 0.0
     cap = 16384
-    for name, maps, sup, thr in cases:
+    for name, maps, sup, thr, rad in cases:
+        kept = maps.clone()
+        edge = nms_cuda.tile_edge(*maps.shape[1:], rad, optin)
         before = nms_cuda.greedy_nms_cuda.launches
-        got = nms_cuda.greedy_nms_cuda(maps, radius, thr, cap, sup)
+        got = nms_cuda.greedy_nms_cuda(maps, rad, thr, cap, sup)
         torch.cuda.synchronize()
         if nms_cuda.greedy_nms_cuda.launches != before + 1:
             raise AssertionError(f"K1 {name}: expected one launch")
-        want = nms_cuda.greedy_nms_plain(maps, radius, thr, cap, sup)
+        want = nms_cuda.greedy_nms_plain(maps, rad, thr, cap, sup)
         counts = got[2].tolist()
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
             raise AssertionError(f"K1 {name}: differs from the plain version "
                                  f"(counts {counts} vs {want[2].tolist()})")
+        if not torch.equal(maps, kept):
+            raise AssertionError(f"K1 {name}: changed the caller's maps")
         if min(counts) < 1 or max(counts) >= cap:
             raise AssertionError(f"K1 {name}: degenerate pick count {counts}")
         err = max(err, float((got[0] - want[0]).abs().max()))
-        log(f"k1 check {name}: counts {counts}, equal to the plain version")
+        log(f"k1 check {name}, r {rad}, tile edge {edge}: counts {counts}, "
+            "equal to the plain version")
+    if nms_cuda.tile_edge(8192, 8192, r, optin) != 64:
+        raise AssertionError("K1: the 8192^2 case did not take T = 64")
 
     # A capped map: the bounded retry doubles 1024 until the list fits.
     hm = rand(SIZE, SIZE)
@@ -406,17 +496,25 @@ def main() -> int:
     gpu = card()
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {gpu}")
 
+    radius = 15  # cfg NMS default, the Picker's radius
     # 1. Build K1.
     t0 = time.perf_counter()
     lib_path = nms_cuda.library.build()
-    max_rows = nms_cuda.library.max_rows(0)
-    log(f"k1 build: {lib_path} in {time.perf_counter() - t0:.1f} s; the "
-        f"row-max cache holds {max_rows} rows")
+    optin = nms_cuda.library.smem_optin(0)
+    edges = ", ".join(
+        f"{h}x{w} -> {nms_cuda.tile_edge(h, w, radius, optin)}"
+        for h, w in ((SIZE, SIZE), BIG_SHAPE, (8192, 8192))
+    )
+    log(f"k1 build: {lib_path} in {time.perf_counter() - t0:.1f} s; shared "
+        f"memory opt-in {optin} bytes a block; tile edge at r {radius}: {edges}")
+    kernel = ""
     for line in nms_cuda.library.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"k1 ptxas: {line.strip()}")
+        m = re.search(r"(nms_(?:prepass|greedy)_kernel)ILi(\d+)E", line)
+        if m:
+            kernel = f"{m.group(1)}<{m.group(2)}>"
+        elif "registers" in line or "spill" in line:
+            log(f"k1 ptxas {kernel}: {line.strip()}")
 
-    radius = 15  # cfg NMS default, the Picker's radius
     # 2. K1 against its plain version.
     max_abs_err = check_k1(nms_cuda, nms, radius)
 
@@ -476,19 +574,48 @@ def main() -> int:
             f"{compare_bf16_f32(bf[:2], f32[:2], f32[2])}")
         planted_faults(paths["zero_bf16"], mic, f32, bf)
 
-        # 5. Timings.
+        # 5. Timings.  K1 reads the heatmap views the Picker passes.
         hm = eval_step(picker.denoiser, {"inp": inp})[PipelineOutput.DETECT]
-        hm = hm[:, :, :, 0].contiguous()
+        hm = hm[:, :, :, 0]
         batch_imgs = np.stack([img] + [
             micrograph(SIZE, SEED + 10 + i) for i in range(3)
         ])
         hm4 = eval_step(picker.denoiser, {
             "inp": torch.from_numpy(batch_imgs[..., None]).cuda()
-        })[PipelineOutput.DETECT][:, :, :, 0].contiguous()
+        })[PipelineOutput.DETECT][:, :, :, 0]
+        # A full micrograph's map, as halo tiling will hand it to K1: the
+        # main-path map repeated, cropped to 4096x5760 (a strided view), with
+        # a list long enough for every pick.
+        big = hm.repeat(1, 4, 6)[:, :BIG_SHAPE[0], :BIG_SHAPE[1]]
+        big_cap = 65536
         k = picker.max_peaks
 
-        def k1(maps):
-            return lambda: nms_cuda.greedy_nms_cuda(maps, radius, THRESHOLD, k)
+        def k1(maps, cap=k):
+            return lambda: nms_cuda.greedy_nms_cuda(maps, radius, THRESHOLD,
+                                                    cap)
+
+        got = k1(big, big_cap)()
+        want = nms_cuda.greedy_nms_plain(big, radius, THRESHOLD, big_cap)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError("K1 4096x5760: differs from the plain version")
+        if not 0 < int(got[2][0]) < big_cap:
+            raise AssertionError(f"K1 4096x5760: {int(got[2][0])} picks")
+        log(f"k1 check 4096x5760 from the main-path map: {int(got[2][0])} "
+            "picks, equal to the plain version")
+
+        k1_rows = {}
+        for name, maps, cap in (("k1 1024^2", hm, k),
+                                ("k1 (4, 1024^2) batch", hm4, k),
+                                ("k1 4096x5760", big, big_cap)):
+            picks = int(k1(maps, cap)()[2].max())
+            text, med = summary(cuda_ms(k1(maps, cap)))
+            parts = kernel_ms(k1(maps, cap), ("nms_prepass", "nms_greedy"))
+            pre_text, pre = summary(parts["nms_prepass"])
+            chain_text, chain = summary(parts["nms_greedy"])
+            k1_rows[name] = (med, pre, 1e3 * chain / picks)
+            log(f"timing {name}: {text}; pre-pass {pre_text}; greedy chain "
+                f"{chain_text}; {picks} picks on the largest map, "
+                f"{1e3 * chain / picks:.4f} us a pick in the chain | {gpu}")
 
         model = picker.denoiser.model
 
@@ -506,8 +633,6 @@ def main() -> int:
         count = int(k1(hm)()[2][0])
         ms_lines = {}
         for name, fn, timer in (
-            ("k1 1024^2", k1(hm), cuda_ms),
-            ("k1 (4, 1024^2) batch", k1(hm4), cuda_ms),
             ("plain 1024^2", lambda: nms_cuda.greedy_nms_plain(
                 hm, radius, THRESHOLD, k), host_ms),
             ("dense forward 1024^2 bf16", lambda: eval_step(
@@ -538,11 +663,14 @@ def main() -> int:
         "replaces": "spr_pick_tpu/ops/nms_pallas.py:31",
         "launches": launches,
         "max_abs_err": max_abs_err,
-        "ms": ms_lines["k1 1024^2"],
+        "ms": k1_rows["k1 1024^2"][0],
         "plain_ms": ms_lines["plain 1024^2"],
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "prepass_ms": k1_rows["k1 1024^2"][1],
+        "us_per_pick": k1_rows["k1 1024^2"][2],
+        "tile_edge": nms_cuda.tile_edge(h, w, radius, optin),
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

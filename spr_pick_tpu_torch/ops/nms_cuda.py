@@ -7,12 +7,14 @@ first use, into ``build/torch_kernels/`` beside the package (listed in
 .gitignore), and loaded with ctypes.
 
 `greedy_nms` is the entry point: a CUDA tensor launches the kernel (one
-launch for the whole (B, H, W) batch), a CPU tensor runs
-`greedy_nms_plain`, the same row-max greedy loop as tensor ops.  Both
-return (scores (B, K) f32, coords (B, K, 2) int32 as (x, y), counts (B,)
-int32) with entries past the count at 0, and both leave the caller's
-heatmaps untouched: they work on a contiguous copy, seeded with -inf at
-``suppressed`` pixels.
+call for the whole (B, H, W) batch: a pre-pass over (map, tile) that writes
+a padded work map and each tile's best key, then the greedy chain, one
+block per map), a CPU tensor runs `greedy_nms_plain`, the same row-max
+greedy loop as tensor ops.  Both return (scores (B, K) f32, coords (B, K, 2)
+int32 as (x, y), counts (B,) int32) with entries past the count at 0, and
+both leave the caller's heatmaps untouched.  The kernel reads them as a
+strided view with unit column stride (`_check_view`); the plain version
+works on a contiguous copy, seeded with -inf at ``suppressed`` pixels.
 """
 
 from __future__ import annotations
@@ -33,8 +35,58 @@ SOURCE = _PKG / "csrc" / "nms.cu"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+# Tile edges the kernel is built for; `tile_edge` takes the smallest that fits.
+TILE_EDGES = (32, 64, 128, 256)
+_KEY_BYTES = 8
+_THREADS = 512     # the greedy chain's block (kThreads in csrc/nms.cu)
+MAX_BOX_TILES = 32  # tiles a disk's box may touch: one lane each
+MAX_SIDE = 65536    # a key holds a pixel's row and column in 16 bits each
 
 NmsResult = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _box_tiles(h: int, w: int, radius: int, tile: int) -> int:
+    side = _cdiv(2 * radius, tile) + 1
+    return min(side, _cdiv(w, tile)) * min(side, _cdiv(h, tile))
+
+
+def smem_bytes(h: int, w: int, radius: int, tile: int) -> int:
+    """Shared memory K1's greedy chain needs for an (h, w) map at tile edge
+    ``tile``: one key per tile, one per group of 32 tiles, and one per
+    warp-round of quads in the tiles a disk's box can touch (`Layout` in
+    csrc/nms.cu)."""
+    tiles = _cdiv(w, tile) * _cdiv(h, tile)
+    quads_per_thread = min(8, tile * tile // _THREADS)
+    chunks = tile * tile // 4 // (32 * quads_per_thread)
+    return _KEY_BYTES * (tiles + _cdiv(tiles, 32)
+                         + _box_tiles(h, w, radius, tile) * chunks)
+
+
+def tile_edge(h: int, w: int, radius: int, smem_optin: int) -> int:
+    """The smallest tile edge in `TILE_EDGES` whose tile-key table fits in
+    ``smem_optin`` bytes of shared memory (the device's per-block opt-in)
+    and whose disk box touches at most `MAX_BOX_TILES` tiles."""
+    if max(h, w) > MAX_SIDE:
+        raise ValueError(f"K1's keys hold maps of at most {MAX_SIDE} pixels a "
+                         f"side; the map is {h}x{w}")
+    for t in TILE_EDGES:
+        if (_box_tiles(h, w, radius, t) <= MAX_BOX_TILES
+                and smem_bytes(h, w, radius, t) <= smem_optin):
+            return t
+    t = TILE_EDGES[-1]
+    if _box_tiles(h, w, radius, t) > MAX_BOX_TILES:
+        raise ValueError(f"K1 takes radii whose disk touches at most "
+                         f"{MAX_BOX_TILES} tiles of {t}; radius {radius} is "
+                         "too large")
+    raise ValueError(
+        f"K1's tile-key table for a {h}x{w} map needs "
+        f"{smem_bytes(h, w, radius, t)} bytes of shared memory even at tile "
+        f"edge {t}; the device's limit is {smem_optin} bytes a block"
+    )
 
 
 def _nvcc() -> str:
@@ -50,7 +102,7 @@ class _Library:
 
     def __init__(self):
         self._lib = None
-        self._max_rows = {}
+        self._smem_optin = {}
         self.build_log = ""
 
     def build(self) -> Path:
@@ -77,30 +129,30 @@ class _Library:
     def get(self):
         if self._lib is None:
             lib = ctypes.CDLL(str(self.build()))
-            ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.spr_nms_greedy.argtypes = [ptr, i32, i32, i32, i32,
-                                           ctypes.c_float, i32, ptr, ptr, ptr,
-                                           ptr]
-            lib.spr_nms_greedy.restype = i32
-            lib.spr_nms_max_rows.argtypes = [i32]
-            lib.spr_nms_max_rows.restype = i32
+            ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            lib.spr_nms.argtypes = [ptr, i64, i64, ptr, i32, i32, i32, i32,
+                                    i32, ctypes.c_float, i32, ptr, ptr, ptr,
+                                    ptr, ptr, ptr]
+            lib.spr_nms.restype = i32
+            lib.spr_nms_smem_optin.argtypes = [i32]
+            lib.spr_nms_smem_optin.restype = i32
             lib.spr_cuda_error_string.argtypes = [i32]
             lib.spr_cuda_error_string.restype = ctypes.c_char_p
             self._lib = lib
         return self._lib
 
-    def max_rows(self, device_index: int) -> int:
-        """Rows K1's shared-memory row-max cache holds on this device."""
-        if device_index not in self._max_rows:
+    def smem_optin(self, device_index: int) -> int:
+        """Shared memory a block may opt in to on this device, in bytes."""
+        if device_index not in self._smem_optin:
             lib = self.get()
-            rows = lib.spr_nms_max_rows(device_index)
-            if rows < 0:
+            got = lib.spr_nms_smem_optin(device_index)
+            if got < 0:
                 raise RuntimeError(
                     f"K1 cannot query device {device_index}: "
-                    + lib.spr_cuda_error_string(-rows).decode()
+                    + lib.spr_cuda_error_string(-got).decode()
                 )
-            self._max_rows[device_index] = rows
-        return self._max_rows[device_index]
+            self._smem_optin[device_index] = got
+        return self._smem_optin[device_index]
 
 
 library = _Library()
@@ -130,13 +182,23 @@ def _work_copy(heatmaps: torch.Tensor,
     return work
 
 
+def _check_view(heatmaps: torch.Tensor) -> None:
+    """K1 reads the caller's (B, H, W) float32 maps in place, with any batch
+    and row strides but unit column stride, such as the crop
+    ``outputs[DETECT][:, :h, :w, 0]`` of a (B, Hp, Wp, 1) tensor."""
+    if heatmaps.shape[2] > 1 and heatmaps.stride(2) != 1:
+        raise ValueError(f"K1 reads rows with unit column stride; the view "
+                         f"has strides {heatmaps.stride()}")
+
+
 def _f32(threshold: float) -> float:
     # The kernels compare in float32; round the threshold the same way.
     return float(np.float32(threshold))
 
 
 class GreedyNmsKernel:
-    """Launches K1 on CUDA tensors; counts its launches in ``launches``."""
+    """Launches K1 on CUDA tensors; counts its calls in ``launches`` (each
+    call is two kernel launches, the pre-pass and the greedy chain)."""
 
     def __init__(self):
         self.launches = 0
@@ -149,24 +211,35 @@ class GreedyNmsKernel:
                 "greedy_nms sends CPU tensors to greedy_nms_plain"
             )
         _check_args(heatmaps, radius, max_peaks)
+        _check_view(heatmaps)
         b, h, w = heatmaps.shape
         device = heatmaps.device
         lib = library.get()
-        max_rows = library.max_rows(device.index or 0)
-        if h > max_rows:
-            raise ValueError(f"K1's row-max cache holds {max_rows} rows in "
-                             f"shared memory; the map has {h}")
-        work = _work_copy(heatmaps, suppressed)
-        scores = torch.empty((b, max_peaks), dtype=torch.float32, device=device)
-        coords = torch.empty((b, max_peaks, 2), dtype=torch.int32, device=device)
-        counts = torch.empty((b,), dtype=torch.int32, device=device)
-        if b == 0:
+        t = tile_edge(h, w, radius, library.smem_optin(device.index or 0))
+        empty = b == 0 or h == 0 or w == 0
+        alloc = torch.zeros if empty else torch.empty  # K1 fills every slot
+        scores = alloc((b, max_peaks), dtype=torch.float32, device=device)
+        coords = alloc((b, max_peaks, 2), dtype=torch.int32, device=device)
+        counts = alloc((b,), dtype=torch.int32, device=device)
+        if empty:
             return scores, coords, counts
+        # Scratch goes back to PyTorch's caching allocator when this returns;
+        # it hands the memory only to work queued after K1 on this stream.
+        ntx, nty = _cdiv(w, t), _cdiv(h, t)
+        work = torch.empty((b, nty * t, ntx * t), dtype=torch.float32,
+                           device=device)
+        keys = torch.empty((b, nty * ntx), dtype=torch.int64, device=device)
+        sup = None
+        if suppressed is not None:
+            sup = torch.as_tensor(suppressed, device=device).to(
+                torch.bool).expand(b, h, w).contiguous()
         stream = torch.cuda.current_stream(device).cuda_stream
         with torch.cuda.device(device):
-            rc = lib.spr_nms_greedy(
-                work.data_ptr(), b, h, w, int(radius), _f32(threshold),
-                int(max_peaks), scores.data_ptr(), coords.data_ptr(),
+            rc = lib.spr_nms(
+                heatmaps.data_ptr(), heatmaps.stride(0), heatmaps.stride(1),
+                None if sup is None else sup.data_ptr(), b, h, w, t,
+                int(radius), _f32(threshold), int(max_peaks), work.data_ptr(),
+                keys.data_ptr(), scores.data_ptr(), coords.data_ptr(),
                 counts.data_ptr(), stream,
             )
         if rc != 0:
