@@ -30,14 +30,41 @@ script then exits nonzero and prints no result):
      tests/test_bf16_parity.py, with the MIN_MATCHED floor that random
      weights allow), and the same comparison for planted faults in the bf16
      path, which shows what the floor catches;
-  5. K1 against its plain version on a 4096x5760 map made of the main
-     path's map, then timings (median of 5 runs with their spread): K1 on
-     the main path's 1024^2 map, on a (4, 1024^2) batch and on the
-     4096x5760 map, each with its pre-pass and greedy chain apart (from
-     torch.profiler) and microseconds a pick; the plain version, the dense
-     forward at 1024^2 bf16 with its U-Net and detector parts, and pick
-     micrographs/s; then one pick under torch.profiler for the device's
-     busy time and idle share.
+  5. timings (median of 5 runs with their spread): K1 on the main path's
+     1024^2 map and on a (4, 1024^2) batch, each with its pre-pass and
+     greedy chain apart (from torch.profiler) and microseconds a pick; the
+     plain version, the dense forward at 1024^2 bf16 with its U-Net and
+     detector parts, and pick micrographs/s; then one pick under
+     torch.profiler for the device's busy time and idle share;
+  6. halo tiling in float32 (TF32 off) on the card against the CPU: a
+     512x640 micrograph with the tiling knobs lowered (threshold 256, tile
+     192, halo 32) tiles into 3x4 windows, clamped and interior: equal pick
+     sets, scores within 1e-5;
+  7. the full frame: a synthetic 4096x5760 MRC (a K3 frame) through
+     ``Picker(wt).pick_arrays`` in bf16 at the production knobs (2048, 1024,
+     96: 24 windows of 1216^2) and the checkpoint's ``max_peaks`` (2048):
+     K1 must be called once on the stitched heatmap plus once for each
+     doubling of the cap that the pick count needs; with ``max_peaks``
+     65536 it must be called exactly once and give the same picks; K1 must
+     equal its plain version on the stitched map, bare and seeded with the
+     `find_contamination` mask of the denoised frame; then the "auto" halo
+     (calibrated halo, deviation curve, seconds), and tiled against direct
+     at 2048^2 (p99 heatmap deviation, matched pick fraction: a finding,
+     not a gate, with random weights);
+  8. the commands in subprocesses where importing pandas or PIL fails, on
+     two 1024^2 MRCs and the full frame: ``pick`` to a TSV, ``pick`` to a
+     .star with ``--denoise_dir``, and ``eval --export_star
+     --exclude_contam``; every table, denoised image and `_scores.txt` must
+     equal the Picker's (float32, the A half zeroed; the eval picks seeded
+     with ``find_contamination`` of the denoised image) and every PNG must
+     be written; K1 with those contamination masks must equal its plain
+     version on each map, on the stitched frame, and on the two 1024^2
+     maps as one batch;
+  9. timings: the tiled pick at 4096x5760 end to end, at the checkpoint's
+     ``max_peaks``, with its windows' forward, extraction and stitching, K1
+     and host parts, at one window a forward and at four; K1 on the
+     stitched map in one call; `eval` with artifacts at 1024^2; one tiled
+     pick under torch.profiler.
 
 The weights are random, made from a seed.  The detector's 1x1 classifier
 takes the absolute value of its random weights and a scale and bias fitted
@@ -67,7 +94,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 SIZE = 1024          # the bench micrograph edge (bench.py)
 PARITY_SHAPE = (250, 300)  # float32 card-vs-CPU parity, off the 32-px grid
-BIG_SHAPE = (4096, 5760)   # a full micrograph, the size halo tiling hands K1
+BIG_SHAPE = (4096, 5760)   # a K3 frame, the map halo tiling hands K1
+BIG_CAP = 65536            # a pick list long enough for the full frame
+TILED_SHAPE = (512, 640)   # phase 6: clamped and interior windows
+LOWERED_KNOBS = (256, 192, 32)     # tiling threshold, tile, halo
+PRODUCTION_KNOBS = (2048, 1024, 96)
 THRESHOLD = 0.02     # Picker's heatmap floor
 STAR_THRESHOLD = 0.13
 MARGIN = 0.02
@@ -443,15 +474,15 @@ def planted_faults(path: str, mic: str, f32, bf) -> None:
                                  "does not catch it")
 
 
-def profile_pick(picker, mic: str) -> str:
-    """One traced pick: device busy time (union of kernel intervals) against
+def profile_call(fn) -> str:
+    """One traced call: device busy time (union of kernel intervals) against
     wall time, and the PyTorch ops that take the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        picker.pick_arrays(mic)
+        fn()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
     spans = sorted(
@@ -477,6 +508,430 @@ def profile_pick(picker, mic: str) -> str:
     return (f"wall {wall:.3f} ms under the profiler, device busy {busy:.3f} "
             f"ms (idle share {100 * (1 - busy / wall):.1f}%), {len(spans)} "
             f"kernels; top ops by device ms: {top}")
+
+
+def k1_bound(h: int, w: int, cap: int, count: int, radius: int):
+    """(ms, "bytes" or "operations"): the least time the card could take for
+    K1 on one (h, w) float32 map: the map read once and the pick lists
+    written once at the HBM rate, or one max per pixel and one distance test
+    per disk-box pixel per pick at the float32 rate, whichever is longer."""
+    t_bytes = (h * w * 4 + cap * (4 + 8) + 4) / HBM_BYTES_PER_S
+    t_ops = (h * w + count * (2 * radius + 1) ** 2) / F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+# ---------------------------------------------------------------------------
+# Phases 6-9: halo tiling, the full frame, the commands
+# ---------------------------------------------------------------------------
+
+def full_frame(shape, seed: int) -> np.ndarray:
+    """A synthetic K3-sized micrograph: noise with one planted Gaussian
+    particle (radius ~6 px) per 20000 px, each added in a 49x49 patch."""
+    h, w = shape
+    rng = np.random.RandomState(seed)
+    img = rng.randn(h, w).astype(np.float32)
+    yy, xx = np.mgrid[-24:25, -24:25]
+    blob = (4.0 * np.exp(-(yy ** 2 + xx ** 2) / 72.0)).astype(np.float32)
+    for cy, cx in rng.randint(40, np.array([h, w]) - 40, size=(h * w // 20000, 2)):
+        img[cy - 24 : cy + 25, cx - 24 : cx + 25] += blob
+    return img
+
+
+def set_knobs(picker, knobs) -> None:
+    ev = picker._ev
+    ev.tile_eval_threshold, ev.tile_eval_size, ev.tile_eval_halo = knobs
+
+
+def tiled_card_vs_cpu(Picker, path: str) -> None:
+    """Phase 6: the tiled route in float32 on the card equals the CPU's."""
+    torch.backends.cudnn.allow_tf32 = False
+    img = micrograph(TILED_SHAPE, SEED + 2)
+    got = {}
+    for device in (None, "cpu"):
+        picker = Picker(path, border=0, device=device)
+        set_knobs(picker, LOWERED_KNOBS)
+        got[device] = picker.pick_arrays(img)
+        if not picker._tiled(got[device][2]):
+            raise AssertionError("phase 6 did not take the tiled route")
+    torch.backends.cudnn.allow_tf32 = True
+    card, cpu = got[None], got["cpu"]
+    check_picks(*card, "tiled float32 card")
+    if not (np.array_equal(card[1], cpu[1])
+            and np.allclose(card[0], cpu[0], atol=1e-5, rtol=0)):
+        raise AssertionError(f"tiled float32 card vs CPU picks differ: "
+                             f"{len(card[0])} vs {len(cpu[0])}")
+    log(f"tiled float32 card vs CPU {TILED_SHAPE[0]}x{TILED_SHAPE[1]} "
+        f"(threshold, tile, halo {LOWERED_KNOBS}; 3x4 windows of 256^2): "
+        f"{len(card[0])} picks equal, max score diff "
+        f"{float(np.abs(card[0] - cpu[0]).max()):.2e}")
+
+
+def p99(x: torch.Tensor) -> float:
+    v = x.flatten().float().sort().values
+    return float(v[int(0.99 * (v.numel() - 1))])
+
+
+def k1_calls(cap: int, picks: int) -> int:
+    """K1 calls of one pick: the first, then one for each doubling of the
+    cap that a list of ``picks`` needs (`ops/nms.py:nms_batch_trim`)."""
+    calls = 1
+    while picks >= cap:
+        cap, calls = cap * 2, calls + 1
+    return calls
+
+
+def full_frame_phase(Picker, path: str, frame: str, nms_cuda, radius: int):
+    """Phase 7: the full frame through the Picker's tiled route."""
+    from spr_pick_tpu_torch.data.loader import load_image
+    from spr_pick_tpu_torch.ops.algorithms import find_contamination
+
+    picker = Picker(path)
+    if (picker._ev.tile_eval_threshold, picker._ev.tile_eval_size,
+            picker._ev.tile_eval_halo) != PRODUCTION_KNOBS:
+        raise AssertionError("the Picker's tiling knobs are not production's")
+    cap = picker.max_peaks
+    nms_cuda.greedy_nms_cuda.launches = 0
+    scores, coords, shape = picker.pick_arrays(frame)
+    launches = nms_cuda.greedy_nms_cuda.launches
+    if launches != k1_calls(cap, len(scores)):
+        raise AssertionError(f"the tiled pick called K1 {launches} times for "
+                             f"{len(scores)} picks at max_peaks {cap}")
+    check_picks(scores, coords, shape, "full frame bf16")
+    log(f"full frame bf16 {shape[0]}x{shape[1]} (24 windows of 1216^2): "
+        f"{len(scores)} picks, top score {scores[0]:.4f}, K1 calls "
+        f"{launches} at max_peaks {cap} (one, then one a doubling of the cap)")
+    picker.max_peaks = BIG_CAP
+    nms_cuda.greedy_nms_cuda.launches = 0
+    wide = picker.pick_arrays(frame)
+    wide_launches = nms_cuda.greedy_nms_cuda.launches
+    if wide_launches != 1 or not (np.array_equal(wide[0], scores)
+                                  and np.array_equal(wide[1], coords)):
+        raise AssertionError(f"the tiled pick at max_peaks {BIG_CAP}: "
+                             f"{wide_launches} K1 calls, {len(wide[0])} picks")
+    log(f"full frame bf16 at max_peaks {BIG_CAP}: K1 calls {wide_launches}, "
+        "the same picks")
+
+    img = load_image(frame)
+    outputs, _ = picker._forward([img])
+    hm = picker._heatmaps(outputs, shape)
+    got = nms_cuda.greedy_nms_cuda(hm, radius, THRESHOLD, BIG_CAP)
+    want = nms_cuda.greedy_nms_plain(hm, radius, THRESHOLD, BIG_CAP)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("K1 on the stitched map differs from the plain "
+                             "version")
+    n = int(got[2][0])
+    if not (np.array_equal(got[1][0, :n].cpu().numpy(), coords)
+            and np.array_equal(got[0][0, :n].cpu().numpy(), scores)):
+        raise AssertionError("the stitched map's picks differ from the pick")
+    err = float((got[0] - want[0]).abs().max())
+    log(f"k1 check stitched 4096x5760 map: {n} picks, equal to the plain "
+        "version and to the tiled pick")
+    mask = find_contamination(picker._denoised(outputs, shape)).astype(bool)
+    err = max(err, contam_k1_check(nms_cuda, hm, [mask], radius,
+                                   "stitched 4096x5760 map"))
+    hm = hm.clone()
+    del outputs
+
+    ev = picker._ev
+    ev.tile_eval_halo = "auto"
+    t0 = time.perf_counter()
+    halo = ev._calibrated_halo(
+        ev._tile_apply_fn(torch.Generator(device="cuda").manual_seed(SEED)),
+        torch.from_numpy(img).cuda(), shape)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    curve = {k: round(v, 4) for k, v in ev._auto_halo[2].items()}
+    log(f"auto halo on the full frame: {halo} (p99 deviation by halo "
+        f"{curve}, tol 0.02) in {seconds:.2f} s")
+    ev.tile_eval_halo = PRODUCTION_KNOBS[2]
+
+    crop = np.ascontiguousarray(img[:2048, :2048])
+    direct, _ = picker._forward([crop])
+    ev.tile_eval_threshold = 1024  # the same crop through 2x2 windows
+    tiled, _ = picker._forward([crop])
+    ev.tile_eval_threshold = PRODUCTION_KNOBS[0]
+    hd = picker._heatmaps(direct, (2048, 2048))[0]
+    ht = picker._heatmaps(tiled, (2048, 2048))[0]
+    pd_, pt_ = picker._nms(hd), picker._nms(ht)
+    frac = matched(pt_[1], pd_[1], COORD_TOL) / max(len(pd_[0]), len(pt_[0]))
+    log(f"finding, tiled vs direct 2048^2 bf16 (halo 96, random weights): "
+        f"p99 heatmap deviation {p99((ht - hd).abs()):.4f}, max "
+        f"{float((ht - hd).abs().max()):.4f}; {len(pt_[0])} vs {len(pd_[0])} "
+        f"picks, matched fraction {frac:.3f} within {COORD_TOL} px")
+    return hm, (launches, wide_launches), err
+
+
+_BLOCKED = (
+    "import runpy, sys\n"
+    "sys.modules['pandas'] = None\n"
+    "sys.modules['PIL'] = None\n"
+    "sys.argv = ['spr_pick_tpu_torch'] + sys.argv[1:]\n"
+    "runpy.run_module('spr_pick_tpu_torch', run_name='__main__')\n"
+)
+
+
+def command(*args) -> float:
+    """Run `python -m spr_pick_tpu_torch ...` where pandas and PIL cannot
+    be imported; returns its seconds."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED, *args],
+        env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+        text=True, timeout=600,
+    )
+    if out.returncode != 0:
+        raise AssertionError(f"command {args[:1]} failed: {out.stderr[-3000:]}")
+    return time.perf_counter() - t0
+
+
+def read_rows(path: str):
+    with open(path) as f:
+        return [line.rstrip("\n").split("\t") for line in f if line.strip()]
+
+
+def same_rows(got, want, label: str) -> None:
+    """The same picks (name, x, y), scores within 1e-5; near-equal scores
+    may swap places."""
+    got, want = sorted(got), sorted(want)
+    if len(got) != len(want) or any(
+            g[:-1] != w[:-1] or abs(float(g[-1]) - float(w[-1])) > 1e-5
+            for g, w in zip(got, want)):
+        raise AssertionError(f"{label}: {len(got)} rows differ from the "
+                             f"Picker's {len(want)}")
+
+
+def png_size(path: str):
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        raise AssertionError(f"{path} is not a PNG")
+    return int.from_bytes(head[20:24], "big"), int.from_bytes(head[16:20], "big")
+
+
+def contam_k1_check(nms_cuda, maps, masks, radius: int, label: str) -> float:
+    """K1 against its plain version on (B, H, W) maps seeded with
+    `find_contamination` masks: exact equality."""
+    sup = torch.from_numpy(np.stack(masks)).cuda()
+    before = nms_cuda.greedy_nms_cuda.launches
+    got = nms_cuda.greedy_nms_cuda(maps, radius, THRESHOLD, BIG_CAP, sup)
+    if nms_cuda.greedy_nms_cuda.launches != before + 1:
+        raise AssertionError(f"K1 {label}: expected one launch")
+    want = nms_cuda.greedy_nms_plain(maps, radius, THRESHOLD, BIG_CAP, sup)
+    counts = got[2].tolist()
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"K1 {label}: differs from the plain version "
+                             f"(counts {counts} vs {want[2].tolist()})")
+    if min(counts) < 1 or max(counts) >= BIG_CAP:
+        raise AssertionError(f"K1 {label}: degenerate pick count {counts}")
+    share = ", ".join(f"{100 * m.mean():.1f}%" for m in masks)
+    log(f"k1 check {label} with find_contamination seeds ({share} of pixels "
+        f"suppressed): counts {counts}, equal to the plain version")
+    return float((got[0] - want[0]).abs().max())
+
+
+def commands_phase(Picker, path: str, mics: dict, tmp: str, nms_cuda,
+                   radius: int) -> float:
+    """Phase 8: `pick` and `eval` as a user runs them, without pandas or
+    PIL, against the Picker in this process (float32, TF32 at PyTorch's
+    defaults, as in the subprocesses); K1 on the contamination masks that
+    `eval --exclude_contam` seeds it with.  Returns K1's max_abs_err."""
+    from spr_pick_tpu_torch.data import mrc
+    from spr_pick_tpu_torch.ops.algorithms import find_contamination
+    from spr_pick_tpu_torch.ops.nms import nms_to_host
+
+    d = os.path.dirname(next(iter(mics.values())))
+    manifest = os.path.join(tmp, "mics.txt")
+    with open(manifest, "w") as f:
+        f.write("image_name\tpath\n")
+        f.writelines(f"{n}\t{p}\n" for n, p in mics.items())
+    coords = os.path.join(tmp, "coords.txt")
+    with open(coords, "w") as f:
+        f.write("image_name\tx_coord\ty_coord\n")
+        f.writelines(f"{n}\t{x}\t{y}\n" for n in mics
+                     for x, y in ((100, 200), (700, 800)))
+
+    def rows(table):
+        return [[n, str(x), str(y), str(s)] for n, x, y, s in zip(
+            table["image_name"], table["x_coord"], table["y_coord"],
+            table["score"])]
+
+    # What `pick` writes (picks of one forward) and what `eval
+    # --exclude_contam` writes (the same heatmap, NMS seeded with the
+    # contamination mask of the denoised image).
+    picker = Picker(path)
+    want, want_contam, dens, maps, masks = {}, {}, {}, {}, {}
+    for name, p in mics.items():
+        outputs, shape = picker._forward([picker._load(p, False)])
+        dens[name] = picker._denoised(outputs, shape)
+        maps[name] = picker._heatmaps(outputs, shape).clone()
+        masks[name] = find_contamination(dens[name]).astype(bool)
+        want[name] = rows(picker._picks_table(
+            name, *picker._nms(maps[name][0]), shape))
+        want_contam[name] = rows(picker._picks_table(name, *nms_to_host(
+            maps[name][0], picker.nms_radius, threshold=picker.threshold,
+            max_peaks=picker.max_peaks, suppressed=masks[name]), shape))
+        del outputs
+    err = 0.0
+    for name in mics:
+        err = max(err, contam_k1_check(nms_cuda, maps[name], [masks[name]],
+                                       radius, f"{name} {maps[name].shape[1]}x"
+                                       f"{maps[name].shape[2]}"))
+    pair = ("a_1024", "b_1024")
+    err = max(err, contam_k1_check(
+        nms_cuda, torch.cat([maps[n] for n in pair]), [masks[n] for n in pair],
+        radius, "batch (2, 1024, 1024)"))
+
+    out = os.path.join(tmp, "cmd")
+    secs = [command("pick", "-m", path, d, "-o", f"{out}.txt",
+                    "--batch_size", "1")]
+    table = read_rows(f"{out}.txt")
+    if table[0] != ["image_name", "x_coord", "y_coord", "score"]:
+        raise AssertionError(f"pick TSV header {table[0]}")
+    for name in mics:
+        same_rows([r for r in table[1:] if r[0] == name], want[name],
+                  f"pick TSV {name}")
+    secs.append(command("pick", "-m", path, d, "-o", f"{out}.star",
+                        "--batch_size", "1", "--denoise_dir", f"{out}_den"))
+    star = read_rows(f"{out}.star")[6:]
+    n_star = sum(float(r[3]) > 0.13 for n in mics for r in want[n])
+    if len(star) != n_star:
+        raise AssertionError(f"pick .star: {len(star)} rows, want {n_star}")
+    for name in mics:
+        den = mrc.read(os.path.join(f"{out}_den", f"{name}.mrc"))[0]
+        if den.shape != dens[name].shape or not np.allclose(
+                den, dens[name], atol=1e-5, rtol=0):
+            raise AssertionError(f"--denoise_dir {name} differs")
+    secs.append(command("eval", "-m", path, "-d", manifest, "-l", coords,
+                        "--num", str(len(mics)), "--batch_size", "1",
+                        "--export_star", "--exclude_contam",
+                        "--runs_dir", f"{out}_runs"))
+    (run_dir,) = os.listdir(f"{out}_runs")
+    imgs = os.path.join(f"{out}_runs", run_dir, "eval_imgs")
+    for name, p in mics.items():
+        same_rows(read_rows(os.path.join(imgs, f"{name}_scores.txt"))[1:],
+                  want_contam[name], f"eval _scores.txt {name}")
+        for desc in ("nsy", "out", "out-mu", "out-std", "out-target",
+                     "pred_tar"):
+            size = png_size(os.path.join(imgs, f"{name}_{desc}.png"))
+            if size != dens[name].shape:
+                raise AssertionError(f"{name}_{desc}.png is {size}")
+    if not os.path.exists(os.path.join(f"{out}_runs", run_dir,
+                                       "particles.star")):
+        raise AssertionError("eval --export_star wrote no particles.star")
+    log(f"commands without pandas or PIL on {len(mics)} micrographs "
+        f"({', '.join(mics)}): pick TSV, pick .star + --denoise_dir equal to "
+        f"the Picker ({sum(len(w) for w in want.values())} picks), eval "
+        f"--export_star --exclude_contam equal to the Picker's heatmaps "
+        f"seeded with find_contamination "
+        f"({sum(len(w) for w in want_contam.values())} picks); seconds each, "
+        f"process start included: {', '.join(f'{s:.1f}' for s in secs)}")
+    return err
+
+
+class TiledTimer:
+    """CUDA events around the Picker's window forwards, its tiled pass and
+    its NMS, for one pick at a time."""
+
+    def __init__(self, picker):
+        self.spans = {"forward": [], "tiled": [], "k1": []}
+        ev = picker._ev
+        for name, owner, attr in (("forward", ev, "_forward"),
+                                  ("tiled", ev, "_evaluate_tiled"),
+                                  ("k1", picker, "_nms")):
+            setattr(owner, attr, self._wrap(name, getattr(owner, attr)))
+
+    def _wrap(self, name, fn):
+        def timed(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            self.spans[name].append((start, end))
+            return out
+
+        return timed
+
+    def take(self):
+        torch.cuda.synchronize()
+        ms = {k: sum(s.elapsed_time(e) for s, e in v)
+              for k, v in self.spans.items()}
+        for v in self.spans.values():
+            v.clear()
+        return ms
+
+
+def time_tiled_pick(Picker, path: str, frame: str, nms_cuda, batch, gpu: str):
+    """Phase 9: the tiled pick at 4096x5760 at the checkpoint's max_peaks,
+    median of RUNS with its parts; ``batch`` windows a forward (the
+    evaluator takes one: more are set here by wrapping `tiled_dense_apply`)."""
+    import functools
+
+    from spr_pick_tpu_torch.parallel import tiling
+
+    picker = Picker(path)
+    apply = tiling.tiled_dense_apply
+    if batch:
+        tiling.tiled_dense_apply = functools.partial(apply, max_batch=batch)
+    try:
+        timer = TiledTimer(picker)
+        picker.pick_arrays(frame)
+        timer.take()
+        torch.cuda.reset_peak_memory_stats()
+        nms_cuda.greedy_nms_cuda.launches = 0
+        rows = []
+        for _ in range(RUNS):
+            t0 = time.perf_counter()
+            picker.pick_arrays(frame)
+            torch.cuda.synchronize()
+            total = 1e3 * (time.perf_counter() - t0)
+            ms = timer.take()
+            rows.append({"end to end": total,
+                         "windows' forward": ms["forward"],
+                         "extraction, stitching, gaps":
+                             ms["tiled"] - ms["forward"],
+                         "K1": ms["k1"],
+                         "host": total - ms["tiled"] - ms["k1"]})
+        calls = nms_cuda.greedy_nms_cuda.launches / RUNS
+    finally:
+        tiling.tiled_dense_apply = apply
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    label = (f"tiled pick 4096x5760 bf16, {batch or 1} window(s) a forward, "
+             f"max_peaks {picker.max_peaks}")
+    for part in rows[0]:
+        text, med = summary([r[part] for r in rows])
+        log(f"timing {label}, {part}: {text} | {gpu}")
+    med = statistics.median(r["end to end"] for r in rows)
+    log(f"rate {label}: {1e3 / med:.4f} micrographs/s, peak device memory "
+        f"{peak:.2f} GiB, K1 calls a pick {calls:g} | {gpu}")
+    return picker, med
+
+
+def time_eval(path: str, mics: dict, tmp: str, gpu: str) -> None:
+    """Phase 9: `eval` with artifacts at 1024^2 (bf16), in this process."""
+    from spr_pick_tpu_torch.eval import DenoiserEvaluator
+    from spr_pick_tpu_torch.params import ConfigValue
+    from spr_pick_tpu_torch.utils.image_io import save_u8_image
+
+    manifest = os.path.join(tmp, "eval_1024.txt")
+    with open(manifest, "w") as f:
+        f.write("image_name\tpath\n")
+        f.writelines(f"{n}\t{p}\n" for n, p in mics.items())
+    ev = DenoiserEvaluator(path, runs_dir=os.path.join(tmp, "eval_runs"))
+    ev.set_test_data(manifest)
+    n = 4
+    ev.cfg[ConfigValue.NUM_EVAL] = n
+    text, med = summary(host_ms(ev.evaluate))
+    log(f"timing eval with artifacts, {n} micrographs of 1024^2 (decoded "
+        f"once, at the first run): {text} | {gpu}")
+    log(f"rate eval with artifacts: {1e3 * n / med:.3f} micrographs/s | {gpu}")
+    u8 = (np.random.RandomState(SEED).rand(SIZE, SIZE) * 255).astype(np.uint8)
+    png = os.path.join(tmp, "t.png")
+    text, _ = summary(host_ms(lambda: save_u8_image(u8, png)))
+    log(f"timing eval part, one 1024^2 PNG encode and write (6 a micrograph, "
+        f"on 4 export threads): {text} | {gpu}")
+    log(f"profile eval 1024^2 x{n}: {profile_call(ev.evaluate)} | {gpu}")
 
 
 def main() -> int:
@@ -583,39 +1038,33 @@ def main() -> int:
         hm4 = eval_step(picker.denoiser, {
             "inp": torch.from_numpy(batch_imgs[..., None]).cuda()
         })[PipelineOutput.DETECT][:, :, :, 0]
-        # A full micrograph's map, as halo tiling will hand it to K1: the
-        # main-path map repeated, cropped to 4096x5760 (a strided view), with
-        # a list long enough for every pick.
-        big = hm.repeat(1, 4, 6)[:, :BIG_SHAPE[0], :BIG_SHAPE[1]]
-        big_cap = 65536
         k = picker.max_peaks
 
         def k1(maps, cap=k):
             return lambda: nms_cuda.greedy_nms_cuda(maps, radius, THRESHOLD,
                                                     cap)
 
-        got = k1(big, big_cap)()
-        want = nms_cuda.greedy_nms_plain(big, radius, THRESHOLD, big_cap)
-        if not all(torch.equal(a, b) for a, b in zip(got, want)):
-            raise AssertionError("K1 4096x5760: differs from the plain version")
-        if not 0 < int(got[2][0]) < big_cap:
-            raise AssertionError(f"K1 4096x5760: {int(got[2][0])} picks")
-        log(f"k1 check 4096x5760 from the main-path map: {int(got[2][0])} "
-            "picks, equal to the plain version")
-
         k1_rows = {}
-        for name, maps, cap in (("k1 1024^2", hm, k),
-                                ("k1 (4, 1024^2) batch", hm4, k),
-                                ("k1 4096x5760", big, big_cap)):
+
+        def time_k1(name, maps, cap, split=True):
             picks = int(k1(maps, cap)()[2].max())
             text, med = summary(cuda_ms(k1(maps, cap)))
+            if not split:
+                k1_rows[name] = (med, None, None, picks)
+                log(f"timing {name}: {text}; {picks} picks, "
+                    f"{1e3 * med / picks:.4f} us a pick (K1 ms / picks) | "
+                    f"{gpu}")
+                return
             parts = kernel_ms(k1(maps, cap), ("nms_prepass", "nms_greedy"))
             pre_text, pre = summary(parts["nms_prepass"])
             chain_text, chain = summary(parts["nms_greedy"])
-            k1_rows[name] = (med, pre, 1e3 * chain / picks)
+            k1_rows[name] = (med, pre, 1e3 * chain / picks, picks)
             log(f"timing {name}: {text}; pre-pass {pre_text}; greedy chain "
                 f"{chain_text}; {picks} picks on the largest map, "
                 f"{1e3 * chain / picks:.4f} us a pick in the chain | {gpu}")
+
+        time_k1("k1 1024^2", hm, k)
+        time_k1("k1 (4, 1024^2) batch", hm4, k)
 
         model = picker.denoiser.model
 
@@ -647,14 +1096,52 @@ def main() -> int:
             log(f"timing {name}: {text} | {gpu}")
         log(f"rate pick: {1e3 / ms_lines['pick 1024^2 end to end']:.3f} "
             f"micrographs/s | {gpu}")
-        log(f"profile pick 1024^2: {profile_pick(picker, mic)} | {gpu}")
+        del hm4, inp
 
-    h, w = hm.shape[1:]
-    bytes_moved = h * w * 4 + k * (4 + 8) + 4
-    ops = h * w + count * (2 * radius + 1) ** 2
-    bound_ms = 1e3 * max(bytes_moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
-    bound_by = ("bytes" if bytes_moved / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
-                else "operations")
+        # 6. Halo tiling, float32, card against CPU.
+        tiled_card_vs_cpu(Picker, paths["zero_f32"])
+
+        # 7. The full frame through the Picker, bf16, production knobs.
+        d = os.path.join(tmp, "mics")
+        os.makedirs(d)
+        mics = {"a_1024": os.path.join(d, "a_1024.mrc"),
+                "b_1024": os.path.join(d, "b_1024.mrc"),
+                "k3_frame": os.path.join(d, "k3_frame.mrc")}
+        mrc.write(mics["a_1024"], micrograph(SIZE, SEED))
+        mrc.write(mics["b_1024"], micrograph(SIZE, SEED + 10))
+        mrc.write(mics["k3_frame"], full_frame(BIG_SHAPE, SEED + 20))
+        frame = mics["k3_frame"]
+        hm_big, tiled_launches, err = full_frame_phase(
+            Picker, paths["main"], frame, nms_cuda, radius)
+        max_abs_err = max(max_abs_err, err)
+
+        # 8. The commands, without pandas or PIL, float32; K1 on the
+        # contamination masks that eval seeds it with.
+        err = commands_phase(Picker, paths["zero_f32"], mics, tmp, nms_cuda,
+                             radius)
+        max_abs_err = max(max_abs_err, err)
+
+        # 9. Timings of the tiled pick, K1 on its map, eval, profiles.  K1
+        # on the stitched map is timed with CUDA events only: here a
+        # torch.profiler session saw 1-2 of its 5 pre-pass kernels (in a
+        # process alone, 5 of 5), so its parts are not split.
+        time_k1("k1 4096x5760 stitched", hm_big, BIG_CAP, split=False)
+        log(f"profile pick 1024^2: "
+            f"{profile_call(lambda: picker.pick_arrays(mic))} | {gpu}")
+        del picker
+        tiled_picker, _ = time_tiled_pick(Picker, paths["main"], frame,
+                                          nms_cuda, None, gpu)
+        time_tiled_pick(Picker, paths["main"], frame, nms_cuda, 4, gpu)
+        time_eval(paths["main"], {n: mics[n] for n in ("a_1024", "b_1024")},
+                  tmp, gpu)
+        log(f"profile tiled pick 4096x5760: "
+            f"{profile_call(lambda: tiled_picker.pick_arrays(frame))} | {gpu}")
+        count_big = k1_rows["k1 4096x5760 stitched"][3]
+
+    h, w = shape
+    bound_ms, bound_by = k1_bound(h, w, k, count, radius)
+    big_bound_ms, big_bound_by = k1_bound(*BIG_SHAPE, BIG_CAP, count_big,
+                                          radius)
     log(gpu)  # the nvidia-smi name and power limit, as it prints them
     print(json.dumps({"kernels": [{
         "name": "K1 greedy_nms",
@@ -671,6 +1158,11 @@ def main() -> int:
         "prepass_ms": k1_rows["k1 1024^2"][1],
         "us_per_pick": k1_rows["k1 1024^2"][2],
         "tile_edge": nms_cuda.tile_edge(h, w, radius, optin),
+        "ms_4096x5760_stitched": k1_rows["k1 4096x5760 stitched"][0],
+        "bound_ms_4096x5760": big_bound_ms,
+        "bound_by_4096x5760": big_bound_by,
+        "launches_per_tiled_pick": tiled_launches[0],
+        "launches_per_tiled_pick_max_peaks_65536": tiled_launches[1],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,10 +12,13 @@ greedy NMS (K1), the same 30 px border filter and x/y column order as
 `_scores.txt` (train.py:write_scores).  Checkpoints written by the JAX
 package load directly (`utils/checkpoint.py`).
 
+Micrographs above 2048 px after padding take halo tiling
+(`parallel/tiling.py`, through the evaluator), as in the JAX package.
+
 The Picker runs on the GPU: ``device=None`` resolves to ``cuda`` and raises
 when there is none; only an explicit ``device="cpu"`` runs on the CPU.
-``pandas`` is imported only where a DataFrame is built, so `pick_arrays`
-runs without it.
+``pandas`` is imported only where a DataFrame is built, so `pick_arrays`,
+`pick_many_table` and `process_table` run without it.
 """
 
 from __future__ import annotations
@@ -26,22 +29,16 @@ from typing import Dict, Iterable, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from spr_pick_tpu_torch.data import table as tbl
 from spr_pick_tpu_torch.data.loader import load_image
 from spr_pick_tpu_torch.data.micrograph import pad_to_multiple, unpad
-from spr_pick_tpu_torch.denoiser import Denoiser
+from spr_pick_tpu_torch.eval import DenoiserEvaluator
 from spr_pick_tpu_torch.ops.nms import nms_batch_to_host, nms_to_host
 from spr_pick_tpu_torch.params import ConfigValue, PipelineOutput
 from spr_pick_tpu_torch.steps import eval_step
-from spr_pick_tpu_torch.utils import checkpoint as ckpt
-from spr_pick_tpu_torch.utils.device import resolve_device
 
 ImageLike = Union[str, np.ndarray]
 Picks = Tuple[np.ndarray, np.ndarray]
-
-# Micrographs above this edge (px, after padding) take halo tiling in the
-# JAX package (train.py:152, tile_eval_threshold).
-TILE_EVAL_THRESHOLD = 2048
-_COLUMNS = ["image_name", "x_coord", "y_coord", "score"]
 
 
 class Picker:
@@ -51,21 +48,26 @@ class Picker:
     ``nms_radius`` defaults to the checkpoint cfg's NMS value,
     ``threshold`` to the product's 0.02 heatmap floor, ``max_peaks`` to the
     cfg's, ``border`` to the evaluator's 30 px frame (pass 0 to keep edge
-    picks).  ``seed`` seeds the reparameterisation noise of every forward.
+    picks).  ``seed`` seeds the reparameterisation noise: each call draws
+    it from one generator seeded with ``seed``, so repeated calls give the
+    same result.
+
+    Micrographs above the evaluator's ``tile_eval_threshold`` (2048 px
+    after padding) take its halo tiling (``self._ev.tile_eval_size``,
+    ``tile_eval_halo``, as in the JAX package), and the stitched heatmap
+    goes to the NMS kernel in one call.
     """
 
     def __init__(self, checkpoint: str, mode: str = "joint",
                  nms_radius: Optional[int] = None, threshold: float = 0.02,
                  max_peaks: Optional[int] = None, border: int = 30,
                  seed: int = 0, device=None):
-        self.device = resolve_device(device)
-        if not os.path.exists(checkpoint):
-            raise FileNotFoundError(f"Checkpoint does not exist: {checkpoint}")
-        state = ckpt.load(checkpoint)
-        cfg = state["cfg"]
-        self.denoiser = Denoiser(cfg, mode=state.get("mode") or mode,
-                                 device=self.device)
-        self.denoiser.load_variables(state["trainable"], state["static"])
+        # The evaluator owns checkpoint loading and the tiled route; no run
+        # dir is created unless evaluate() is called.
+        self._ev = DenoiserEvaluator(checkpoint, mode=mode, device=device)
+        self.device = self._ev.device
+        self.denoiser = self._ev.denoiser
+        cfg = self._ev.cfg
         self.nms_radius = int(
             nms_radius if nms_radius is not None else cfg[ConfigValue.NMS]
         )
@@ -80,23 +82,29 @@ class Picker:
     # ------------------------------------------------------------------
 
     def _forward(self, arrs: List[np.ndarray]):
-        """One dense forward over same-shape micrographs; returns
-        (outputs, original shape)."""
+        """One dense forward over same-shape micrographs, or halo tiling
+        for one above the threshold; returns (outputs on the device,
+        original shape)."""
         square = not self.denoiser.supports_rect_dense
         padded = []
         shape = None
         for a in arrs:
             p, shape = pad_to_multiple(a, 32, square=square)
             padded.append(p)
-        if max(padded[0].shape) > TILE_EVAL_THRESHOLD:
-            raise NotImplementedError(
-                f"micrograph of {padded[0].shape} px: above "
-                f"{TILE_EVAL_THRESHOLD} px the JAX package uses halo tiling, "
-                "which the port does not have yet (ROADMAP.md, queue 1, halo "
-                "tiling)"
-            )
+        generator = torch.Generator(device=self.device).manual_seed(self.seed)
+        if self._tiled(shape):
+            if len(padded) != 1:
+                raise ValueError("halo tiling takes one micrograph at a time")
+            item = {"inp": padded[0][None, :, :, None], "image_shape": shape}
+            return self._ev._evaluate_tiled(item, generator), shape
         inp = torch.from_numpy(np.stack(padded)[..., None]).to(self.device)
-        return eval_step(self.denoiser, {"inp": inp}, seed=self.seed), shape
+        return eval_step(self.denoiser, {"inp": inp},
+                         generator=generator), shape
+
+    def _tiled(self, shape) -> bool:
+        """Whether a micrograph of ``shape`` takes halo tiling: its edge
+        after the pad to 32 (square or not) is above the threshold."""
+        return max(-(-n // 32) * 32 for n in shape) > self._ev.tile_eval_threshold
 
     @staticmethod
     def _heatmaps(outputs: Dict, shape) -> torch.Tensor:
@@ -113,42 +121,40 @@ class Picker:
         return nms_to_host(heatmap, self.nms_radius, threshold=self.threshold,
                            max_peaks=self.max_peaks)
 
+    def _pick_loaded(self, img: np.ndarray):
+        outputs, shape = self._forward([img])
+        scores, coords = self._nms(self._heatmaps(outputs, shape)[0])
+        return scores, coords, shape
+
     def pick_arrays(self, image: ImageLike, standardize: bool = False
                     ) -> Tuple[np.ndarray, np.ndarray, Tuple[int, int]]:
         """Pick one micrograph without pandas -> (scores, coords as (x, y)
         in NMS order, original shape): what `pick` turns into its frame."""
-        outputs, shape = self._forward([self._load(image, standardize)])
-        scores, coords = self._nms(self._heatmaps(outputs, shape)[0])
-        return scores, coords, shape
+        return self._pick_loaded(self._load(image, standardize))
 
     def pick(self, image: ImageLike, name: Optional[str] = None,
              standardize: bool = False):
         """Pick one micrograph -> DataFrame(image_name, x_coord, y_coord,
         score), sorted by descending score, border-filtered — the
         evaluator's _scores.txt semantics (incl. x/y column order)."""
-        if name is None:
-            name = self._name_for(image)
-        return self._picks_frame(name, *self.pick_arrays(image, standardize))
+        return tbl.to_frame(self.pick_many_table([image], standardize,
+                                                 names=[name]))
 
-    def _picks_frame(self, name, scores, coords, shape):
+    def _picks_table(self, name, scores, coords, shape) -> tbl.Table:
         """Border-filter + column mapping (train.py:write_scores:
         x = coords[:, 1])."""
-        import pandas as pd
-
         b = self.border
         x_max, y_max = shape[0] - b, shape[1] - b
         keep = (
             (coords[:, 1] > b) & (coords[:, 1] < x_max)
             & (coords[:, 0] > b) & (coords[:, 0] < y_max)
         ) if b > 0 else np.ones(len(scores), bool)
-        return pd.DataFrame(
-            {
-                "image_name": name,
-                "x_coord": coords[keep, 1].astype(int),
-                "y_coord": coords[keep, 0].astype(int),
-                "score": scores[keep],
-            }
-        )
+        return {
+            "image_name": np.array([name] * int(keep.sum()), dtype=object),
+            "x_coord": coords[keep, 1].astype(np.int64),
+            "y_coord": coords[keep, 0].astype(np.int64),
+            "score": scores[keep],
+        }
 
     def pick_many(self, images: Iterable[ImageLike],
                   standardize: bool = False, batch_size: int = 1,
@@ -156,55 +162,60 @@ class Picker:
         """Pick several micrographs; one concatenated DataFrame.
 
         ``batch_size`` > 1 groups consecutive SAME-SHAPE micrographs into
-        one dense forward and one batched NMS launch.  ``names``: optional
-        per-image output names; defaults to each path's basename.
+        one dense forward and one batched NMS launch; micrographs above the
+        tiling threshold go one at a time.  ``names``: optional per-image
+        output names; defaults to each path's basename.
         """
-        import pandas as pd
+        return tbl.to_frame(self.pick_many_table(images, standardize,
+                                                 batch_size, names))
 
+    def pick_many_table(self, images: Iterable[ImageLike],
+                        standardize: bool = False, batch_size: int = 1,
+                        names: Optional[Iterable] = None) -> tbl.Table:
+        """`pick_many` without pandas: a `data/table.py` column dict.  A
+        name of None takes the path's basename."""
         images = list(images)
         if names is None:
-            names = [self._name_for(im) for im in images]
+            names = [None] * len(images)
         else:
             names = list(names)
             if len(names) != len(images):
                 raise ValueError(f"{len(names)} names for {len(images)} images")
-        frames = []
-        if batch_size <= 1:
-            frames = [
-                self.pick(im, name=nm, standardize=standardize)
-                for im, nm in zip(images, names)
-            ]
-        else:
-            i = 0
-            carried = None  # shape-mismatched load carried to the next group
-            while i < len(images):
-                first = carried if carried is not None else self._load(
-                    images[i], standardize
-                )
-                carried = None
-                group, arrs = [names[i]], [first]
-                while len(group) < batch_size and i + len(group) < len(images):
-                    nxt = self._load(images[i + len(group)], standardize)
-                    if nxt.shape != first.shape:
-                        carried = nxt  # don't decode it twice
-                        break
-                    group.append(names[i + len(group)])
-                    arrs.append(nxt)
-                frames.extend(self._pick_group(group, arrs))
-                i += len(group)
-        if not frames:
-            return pd.DataFrame(columns=_COLUMNS)
-        return pd.concat(frames, ignore_index=True)
+        names = [self._name_for(im) if nm is None else nm
+                 for im, nm in zip(images, names)]
+        tables = []
+        i = 0
+        carried = None  # shape-mismatched load carried to the next group
+        while i < len(images):
+            first = carried if carried is not None else self._load(
+                images[i], standardize
+            )
+            carried = None
+            group, arrs = [names[i]], [first]
+            while len(group) < batch_size and i + len(group) < len(images):
+                nxt = self._load(images[i + len(group)], standardize)
+                if nxt.shape != first.shape:
+                    carried = nxt  # don't decode it twice
+                    break
+                group.append(names[i + len(group)])
+                arrs.append(nxt)
+            tables.extend(self._pick_group(group, arrs))
+            i += len(group)
+        return tbl.concat(tables)
 
     def _pick_group(self, names, arrs):
-        """One dense forward + one batched NMS over a same-shape group."""
+        """One dense forward + one batched NMS over a same-shape group;
+        giant micrographs take halo tiling one at a time."""
+        if len(arrs) == 1 or self._tiled(arrs[0].shape):
+            return [self._picks_table(nm, *self._pick_loaded(a))
+                    for nm, a in zip(names, arrs)]
         outputs, shape = self._forward(arrs)
         picks = nms_batch_to_host(
             self._heatmaps(outputs, shape), self.nms_radius,
             threshold=self.threshold, max_peaks=self.max_peaks,
         )
         return [
-            self._picks_frame(name, scores, coords, shape)
+            self._picks_table(name, scores, coords, shape)
             for name, (scores, coords) in zip(names, picks)
         ]
 
@@ -232,12 +243,18 @@ class Picker:
     def process(self, image: ImageLike, name: Optional[str] = None,
                 standardize: bool = False):
         """ONE dense forward -> (picks DataFrame, denoised float32 H,W)."""
+        table, den = self.process_table(image, name, standardize)
+        return tbl.to_frame(table), den
+
+    def process_table(self, image: ImageLike, name: Optional[str] = None,
+                      standardize: bool = False):
+        """`process` without pandas -> (picks table, denoised float32 H,W)."""
         if name is None:
             name = self._name_for(image)
         outputs, shape = self._forward([self._load(image, standardize)])
         den = self._denoised(outputs, shape)
         scores, coords = self._nms(self._heatmaps(outputs, shape)[0])
-        return self._picks_frame(name, scores, coords, shape), den
+        return self._picks_table(name, scores, coords, shape), den
 
     @staticmethod
     def _denoised(outputs, shape) -> np.ndarray:

@@ -22,6 +22,8 @@ from spr_pick_tpu_torch.params import (
 # Re-export under the parity name as well.
 ConfigValue = CV
 
+DEFAULT_RUN_DIR = "hi_runs"
+
 # Reference defaults (spr_pick/cfg.py:10-43), grouped by concern.
 _TRAINING_DEFAULTS = {
     CV.ITERATIONS: 200000,
@@ -117,6 +119,11 @@ def infer_datasets(cfg: Dict):
         path = cfg.get(path_key)
         if path is not None and cfg.get(type_key) is None:
             cfg[type_key] = _dataset_type_for(path)
+
+
+def test_length(cfg: Dict) -> int:
+    """Micrographs an evaluation visits (the sampler wraps around)."""
+    return cfg[CV.NUM_EVAL]
 
 
 # Algorithm -> (pipeline, blindspot) table (spr_pick/cfg.py:146-174).

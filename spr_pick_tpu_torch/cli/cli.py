@@ -1,0 +1,310 @@
+"""The `pick` and `eval` command line of the PyTorch port.
+
+    python -m spr_pick_tpu_torch pick -m model.wt mics/ -o picks.star
+    python -m spr_pick_tpu_torch eval -m model.wt -d imgs.txt -l coords.txt
+
+The port of `spr_pick_tpu/cli/cli.py`'s `eval` and `pick` subcommands: the
+same flags, defaults and outputs, plus ``--device`` (the GPU unless given).
+Neither command needs pandas or PIL: tables are read and written with the
+`csv` module and PNGs with `zlib`.  `train` is not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import sys
+from typing import Dict, List, Optional
+
+from spr_pick_tpu_torch import cfg as cfg_mod
+from spr_pick_tpu_torch.params import ConfigValue
+
+_TRAIN_REFUSAL = (
+    "train: training is not ported to spr_pick_tpu_torch yet (ROADMAP.md §1 "
+    "item 3, joint training); train with `python -m spr_pick_tpu train`"
+)
+
+
+def _add_star_args(parser: argparse.ArgumentParser, what: str) -> None:
+    parser.add_argument("--star_threshold", type=float, default=0.13,
+                        help=f"Score threshold for {what}")
+    parser.add_argument("--star_scale", type=float, default=4.0,
+                        help=f"Coordinate upscale for {what} (binning undo)")
+    parser.add_argument("--star_borders", type=int, nargs=4, default=None,
+                        metavar=("XMIN", "XMAX", "YMIN", "YMAX"),
+                        help=f"Keep-window for {what}, applied after scaling")
+
+
+def _add_device_arg(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: the GPU; 'cpu' to run "
+                        "on the CPU)")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="spr_pick_tpu_torch",
+        description="Joint cryo-EM denoising + picking on an NVIDIA GPU",
+    )
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    train = sub.add_parser("train", help="not ported yet")
+    train.add_argument("rest", nargs=argparse.REMAINDER)
+
+    # --- eval ---
+    ev = sub.add_parser("eval", help="Evaluate a trained model")
+    ev.add_argument("--model", "-m", required=True,
+                    help=".training or .wt checkpoint")
+    ev.add_argument("--dataset", "-d", required=True, help="Eval dataset path")
+    ev.add_argument("--gt_dataset", "-gt", "-g",
+                    help="Clean ground-truth dataset path")
+    ev.add_argument("--labels", "-l", help="Eval coordinate labels (optional)")
+    ev.add_argument("--runs_dir", default=cfg_mod.DEFAULT_RUN_DIR)
+    ev.add_argument("--batch_size", type=int)
+    ev.add_argument("--nms", "-nms", type=int)
+    ev.add_argument("--max_peaks", type=int,
+                    help="per-map cap of the NMS pick list (default 2048); a "
+                    "full list retries with a doubled cap")
+    ev.add_argument("--num", "-num", type=int)
+    ev.add_argument(
+        "--exclude_contam", action="store_true",
+        help="Seed NMS with a contamination mask detected on the denoised "
+        "output (reference find_contamination hook)",
+    )
+    ev.add_argument(
+        "--export_star", metavar="PATH", nargs="?", const="particles.star",
+        help="After eval, aggregate the *_scores.txt picks into a RELION "
+        ".star (default particles.star inside the eval run dir)",
+    )
+    _add_star_args(ev, "--export_star")
+    _add_device_arg(ev)
+
+    # --- pick (the Picker as a command; no run dirs) ---
+    pick = sub.add_parser(
+        "pick",
+        help="Pick (and/or denoise) micrographs straight to a picks table",
+    )
+    pick.add_argument("--model", "-m", required=True,
+                      help=".training or .wt checkpoint")
+    pick.add_argument(
+        "images", nargs="+",
+        help="Micrograph paths, directories (searched recursively for "
+        "images), and/or TSV manifests (image_name<TAB>path)",
+    )
+    pick.add_argument(
+        "--output", "-o", default="picks.txt",
+        help="Picks output: *_scores.txt-schema TSV, a RELION .star (by "
+        "extension), or '-' for TSV on stdout (default picks.txt)",
+    )
+    pick.add_argument("--nms", type=int,
+                      help="NMS radius (default: checkpoint cfg)")
+    pick.add_argument("--threshold", type=float, default=0.02,
+                      help="Heatmap score floor (default 0.02)")
+    pick.add_argument("--border", type=int, default=30,
+                      help="Edge exclusion in px (default 30; 0 keeps edge "
+                      "picks)")
+    pick.add_argument("--max_peaks", type=int,
+                      help="Pick cap per micrograph (default: checkpoint cfg)")
+    pick.add_argument("--batch_size", type=int, default=4,
+                      help="Same-shape micrographs per dense forward "
+                      "(default 4)")
+    pick.add_argument("--standardize", action="store_true",
+                      help="Header-based MRC normalisation at load")
+    pick.add_argument("--seed", type=int, default=0)
+    pick.add_argument(
+        "--denoise_dir", metavar="DIR",
+        help="Also write the denoised micrographs into DIR (picks and "
+        "denoised come from the same forward)",
+    )
+    pick.add_argument("--denoise_format", choices=["mrc", "png"],
+                      default="mrc",
+                      help="Denoised output format (mrc: float32 data; png: "
+                      "min-max 8-bit view)")
+    _add_star_args(pick, ".star outputs")
+    _add_device_arg(pick)
+    return parser
+
+
+def run_eval(args: Dict):
+    from spr_pick_tpu_torch.eval import DenoiserEvaluator
+
+    evaluator = DenoiserEvaluator(args["model"], runs_dir=args["runs_dir"],
+                                  device=args.get("device"))
+    evaluator.set_test_data(args["dataset"])
+    if args.get("labels") is not None:
+        evaluator.set_test_label(args["labels"])
+    if args.get("gt_dataset") is not None:
+        evaluator.set_test_gt_data(args["gt_dataset"])
+    for arg, key in (("batch_size", ConfigValue.TEST_MINIBATCH_SIZE),
+                     ("nms", ConfigValue.NMS),
+                     ("max_peaks", ConfigValue.MAX_PEAKS),
+                     ("num", ConfigValue.NUM_EVAL)):
+        if args.get(arg) is not None:
+            evaluator.cfg[key] = args[arg]
+    if args.get("exclude_contam"):
+        evaluator.cfg[ConfigValue.EXCLUDE_CONTAM] = True
+    evaluator.evaluate()
+
+    if args.get("export_star"):
+        from spr_pick_tpu_torch.data.star_export import convert
+
+        out = args["export_star"]
+        if not os.path.isabs(out):
+            out = os.path.join(evaluator.run_dir_path, out)
+        try:
+            n = convert(
+                os.path.join(evaluator.run_dir_path, "eval_imgs"), out,
+                threshold=args["star_threshold"], scale=args["star_scale"],
+                borders=args.get("star_borders"),
+            )
+        except FileNotFoundError as exc:
+            raise SystemExit(f"--export_star: {exc}")
+        logging.getLogger("cli").info("wrote %d particles to %s", n, out)
+
+
+def _expand_pick_inputs(items: List[str]):
+    """Expand the `pick` positional inputs.
+
+    Each item is a micrograph path, a directory (searched recursively for
+    image files), or a TSV manifest with a `path` column (names taken from
+    `image_name` when present).  Returns aligned (paths, names); names that
+    collide get the suffixes -2, -3, ...
+    """
+    from spr_pick_tpu_torch.api import Picker
+    from spr_pick_tpu_torch.data.folder import find_images
+    from spr_pick_tpu_torch.data.table import read_tsv
+
+    paths: List[str] = []
+    names: List[Optional[str]] = []
+    for item in items:
+        if os.path.isdir(item):
+            found = sorted(find_images(item))
+            if not found:
+                raise SystemExit(f"pick: no images found under {item}")
+            paths.extend(found)
+            names.extend([None] * len(found))
+        elif item.lower().endswith((".txt", ".tsv", ".tab")):
+            table = read_tsv(item)
+            if "path" not in table:
+                raise SystemExit(
+                    f"pick: manifest {item} has no 'path' column "
+                    "(expected image_name<TAB>path)"
+                )
+            # Paths are used verbatim (absolute or cwd-relative).
+            paths.extend(str(p) for p in table["path"])
+            if "image_name" in table:
+                names.extend(str(n) for n in table["image_name"])
+            else:
+                names.extend([None] * len(table["path"]))
+        else:
+            paths.append(item)
+            names.append(None)
+    names = [Picker._name_for(p) if nm is None else nm
+             for nm, p in zip(names, paths)]
+    # Basename-derived names can collide across inputs (dirA/mic1.mrc and
+    # dirB/mic1.mrc): suffix them so --denoise_dir outputs and picks rows
+    # stay distinct.
+    counts: Dict[str, int] = {}
+    unique = []
+    n_dups = 0
+    for nm in names:
+        if nm in counts:
+            n_dups += 1
+            counts[nm] += 1
+            cand = f"{nm}-{counts[nm]}"
+            while cand in counts:
+                counts[nm] += 1
+                cand = f"{nm}-{counts[nm]}"
+            counts[cand] = 1
+            unique.append(cand)
+        else:
+            counts[nm] = 1
+            unique.append(nm)
+    if n_dups:
+        logging.getLogger("cli").warning(
+            "pick: %d duplicate image name(s) across inputs; suffixed -2, "
+            "-3, ... to keep outputs distinct", n_dups
+        )
+    return paths, unique
+
+
+def run_pick(args: Dict):
+    from spr_pick_tpu_torch.api import Picker
+    from spr_pick_tpu_torch.data import table as tbl
+    from spr_pick_tpu_torch.utils import logging_helper
+
+    logging_helper.setup()
+    log = logging.getLogger("cli")
+    paths, names = _expand_pick_inputs(args["images"])
+    picker = Picker(
+        args["model"],
+        nms_radius=args.get("nms"),
+        threshold=args["threshold"],
+        max_peaks=args.get("max_peaks"),
+        border=args["border"],
+        seed=args["seed"],
+        device=args.get("device"),
+    )
+
+    if args.get("denoise_dir"):
+        # One forward per micrograph yields both the picks and the denoised
+        # image (Picker.process_table).
+        ddir = args["denoise_dir"]
+        os.makedirs(ddir, exist_ok=True)
+        tables = []
+        for path, name in zip(paths, names):
+            picks, den = picker.process_table(
+                path, name=name, standardize=args["standardize"]
+            )
+            tables.append(picks)
+            out_path = os.path.join(ddir, f"{name}.{args['denoise_format']}")
+            if args["denoise_format"] == "mrc":
+                from spr_pick_tpu_torch.data import mrc
+
+                mrc.write(out_path, den)
+            else:
+                from spr_pick_tpu_torch.utils.image_io import save_array_image
+
+                save_array_image(den, out_path)
+        log.info("wrote %d denoised micrographs to %s", len(paths), ddir)
+        table = tbl.concat(tables)
+    else:
+        try:
+            table = picker.pick_many_table(
+                paths, names=names, standardize=args["standardize"],
+                batch_size=args["batch_size"],
+            )
+        except ValueError as exc:
+            raise SystemExit(f"pick: {exc}")
+
+    out = args["output"]
+    if out == "-":
+        tbl.write_tsv(sys.stdout, table)
+    elif out.lower().endswith(".star"):
+        from spr_pick_tpu_torch.data.star_export import frame_to_star
+
+        n = frame_to_star(
+            table, out, threshold=args["star_threshold"],
+            scale=args["star_scale"], borders=args.get("star_borders"),
+        )
+        log.info("wrote %d particles (of %d picks) to %s", n,
+                 tbl.num_rows(table), out)
+    else:
+        with open(out, "w", newline="") as f:
+            tbl.write_tsv(f, table)
+        log.info("wrote %d picks to %s", tbl.num_rows(table), out)
+
+
+def start(argv: Optional[List[str]] = None):
+    args = vars(build_parser().parse_args(argv))
+    if args["command"] == "train":
+        raise SystemExit(_TRAIN_REFUSAL)
+    if args["command"] == "eval":
+        run_eval(args)
+    else:
+        run_pick(args)
+
+
+if __name__ == "__main__":
+    start()

@@ -18,10 +18,13 @@ Images are plain numpy float32 H,W arrays.
 from __future__ import annotations
 
 import os
+from typing import Dict
 
 import numpy as np
 
 from spr_pick_tpu_torch.data import mrc
+
+IMAGE_EXTS = (".mrc", ".tiff", ".tif", ".png", ".jpg", ".jpeg")
 
 
 def unquantize(x: np.ndarray, mi=-3, ma=3, dtype=np.float32) -> np.ndarray:
@@ -91,3 +94,19 @@ def load_image(path: str, standardize: bool = False) -> np.ndarray:
     if img.ndim == 3:
         img = img.mean(axis=-1)
     return np.ascontiguousarray(img, dtype=np.float32)
+
+
+def load_images_from_list(names, paths, sources=None,
+                          standardize: bool = False) -> Dict:
+    """{source: {name: float32 image}} (or {name: image} without sources),
+    in list order (loader.py:132-142)."""
+    images: Dict = {}
+    if sources is None:
+        for name, path in zip(names, paths):
+            images[name] = load_image(path, standardize=standardize)
+        return images
+    for source, name, path in zip(sources, names, paths):
+        images.setdefault(source, {})[name] = load_image(
+            path, standardize=standardize
+        )
+    return images

@@ -198,20 +198,21 @@ class Denoiser:
     # Pipeline
     # ------------------------------------------------------------------
 
-    def joint_pipeline(self, batch: Dict[str, torch.Tensor], seed: int = 0,
+    def joint_pipeline(self, batch: Dict[str, torch.Tensor],
                        eps: Optional[torch.Tensor] = None,
+                       generator: Optional[torch.Generator] = None,
                        ) -> Dict[PipelineOutput, torch.Tensor]:
         """Joint denoise + detect, dense, in eval mode (`joint_pipeline`
         with ``train=False, dense=True``, denoiser_v2.py:253-589).
 
         batch: inp (B,H,W,C) on this engine's device.  The sample noise is
-        ``eps`` when given, else drawn from a generator seeded with
-        ``seed``.  Returns the pipeline outputs keyed by `PipelineOutput`.
+        ``eps`` when given, else drawn from ``generator`` (on the input's
+        device), else from a generator seeded with 0.  Returns the
+        pipeline outputs keyed by `PipelineOutput`.
         """
         inp = batch["inp"]
-        generator = None
-        if eps is None:
-            generator = torch.Generator(device=inp.device).manual_seed(seed)
+        if eps is None and generator is None:
+            generator = torch.Generator(device=inp.device).manual_seed(0)
         net_out, hm_logits = self._apply_model(inp, eps, generator)
         hm_p = losses.clamped_sigmoid(hm_logits)
 

@@ -1,0 +1,537 @@
+"""Standalone evaluation: load a checkpoint, dense-infer, export picks.
+
+The PyTorch port of `spr_pick_tpu/eval.py` (`DenoiserEvaluator`) with the
+parts of `spr_pick_tpu/train.py` that evaluation uses: the test data
+(`:376-441`), the dense eval pass with same-shape groups, batched NMS and
+contamination seeding (`_evaluate`, `:887-1116`, without the one-group
+export deferral), halo tiling for giant
+micrographs with the weight-keyed halo calibration (`:1118-1231`), the
+artifact export on a thread pool (`:849-885`, `:1245-1360`) and the run-dir
+naming (`:1609-1655`).  The JAX evaluator inherits all of it from the
+trainer; the port has no trainer yet, so the evaluator holds it itself.
+
+Artifacts go to `<runs_dir>/NNNNN-eval-<config_name>/eval_imgs/` as
+``{name}_{desc}.png`` and ``{name}_scores.txt`` (the reference's TSV schema:
+30 px border filter, 0.02 heatmap floor, x/y columns swapped).  Forward
+outputs stay on the device; a map leaves it as 8-bit pixels.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from spr_pick_tpu_torch import cfg as cfg_mod
+from spr_pick_tpu_torch.data.micrograph import unpad
+from spr_pick_tpu_torch.denoiser import Denoiser
+from spr_pick_tpu_torch.ops.nms import nms_batch_to_host, nms_to_host
+from spr_pick_tpu_torch.params import (ConfigValue, DatasetType, Pipeline,
+                                       PipelineOutput)
+from spr_pick_tpu_torch.steps import eval_step
+from spr_pick_tpu_torch.utils import checkpoint as ckpt
+from spr_pick_tpu_torch.utils.device import resolve_device
+from spr_pick_tpu_torch.utils.image_io import (quantize_u8_device,
+                                               save_array_image, save_u8_image)
+from spr_pick_tpu_torch.utils.logging_helper import setup as setup_logging
+from spr_pick_tpu_torch.utils.metrics import (Metric, MetricDict,
+                                              calculate_psnr, separator)
+
+logger = logging.getLogger("eval")
+
+HALO_CANDIDATES = (32, 64, 96, 128, 160, 224, 320)
+
+
+class DenoiserEvaluator:
+    """Owns a Denoiser loaded from a `.training` or `.wt` checkpoint, its
+    test data, and the eval run dir (created on `evaluate`).
+
+    Micrographs whose padded edge exceeds ``tile_eval_threshold`` px take
+    halo tiling: ``tile_eval_size`` px tiles with a ``tile_eval_halo`` px
+    halo (an int, or "auto" to measure it per weight set), one window a
+    forward.
+    """
+
+    def __init__(self, state_path: str, runs_dir: str = cfg_mod.DEFAULT_RUN_DIR,
+                 mode: str = "joint", device=None):
+        self.device = resolve_device(device)
+        if not os.path.exists(state_path):
+            raise FileNotFoundError(f"Checkpoint does not exist: {state_path}")
+        state = ckpt.load(state_path)
+        self.cfg = state["cfg"]
+        self.mode = state.get("mode") or mode
+        self.denoiser = Denoiser(self.cfg, mode=self.mode, device=self.device)
+        self.denoiser.load_variables(state["trainable"], state["static"])
+        training = "training" in state.get("format", "") or "opt_state" in state
+        self.iteration = int(state["iteration"]) if training else 0
+        # The optimizer step, for the weight fingerprint (train.py:1461).
+        self.step = self.iteration // max(
+            self.cfg[ConfigValue.TRAIN_MINIBATCH_SIZE], 1)
+        # One noise stream for the evaluator's life: every forward (a group,
+        # or a tile chunk) draws fresh sample noise from it.
+        self._generator = torch.Generator(device=self.device).manual_seed(
+            int(self.cfg.get(ConfigValue.SEED, 0)))
+        self.runs_dir = runs_dir
+        self._run_dir: Optional[str] = None
+        self.eval_history = MetricDict()
+        self.testset = None
+        self.test_sampler = None
+        # Halo tiling (train.py:149-165).  tile + 2 * halo stays a multiple
+        # of 32 (the pad grid).
+        self.tile_eval_threshold = 2048
+        self.tile_eval_size = 1024
+        self.tile_eval_halo = 96
+        # (weight fingerprint, halo, deviation curve) of the last "auto"
+        # calibration: the measured decay depends on the weight set.
+        self._auto_halo = None
+        self._export_pool: Optional[ThreadPoolExecutor] = None
+        self._pending_exports = []
+
+    # ------------------------------------------------------------------
+    # Test data
+    # ------------------------------------------------------------------
+
+    def test_data(self):
+        """Whole-micrograph test set and its sampler (train.py:376-419)."""
+        from spr_pick_tpu_torch.data.sampler import FixedLengthSampler
+
+        cfg = self.cfg
+        dtype = cfg[ConfigValue.TEST_DATASET_TYPE]
+        if dtype == DatasetType.HDF5:
+            raise NotImplementedError(
+                "HDF5 eval datasets are not ported yet (ROADMAP.md §1 item "
+                "10): pass a TXT manifest or a folder of images"
+            )
+        if dtype == DatasetType.TXT or cfg[ConfigValue.TEST_LABEL_PATH]:
+            from spr_pick_tpu_torch.data.micrograph import MicrographDataset
+
+            dataset = MicrographDataset(
+                cfg[ConfigValue.TEST_DATA_PATH],
+                cfg[ConfigValue.TEST_LABEL_PATH],
+                radius=3,
+                gt_path=cfg[ConfigValue.TEST_GT_PATH],
+                bb=cfg[ConfigValue.BB],
+            )
+        else:
+            from spr_pick_tpu_torch.data.folder import \
+                UnlabelledImageFolderDataset
+            from spr_pick_tpu_torch.data.patches import UnlabeledEvalDataset
+
+            base = UnlabelledImageFolderDataset(
+                cfg[ConfigValue.TEST_DATA_PATH], recursive=True,
+                channels=cfg[ConfigValue.IMAGE_CHANNELS],
+            )
+            gt = None
+            if cfg[ConfigValue.TEST_GT_PATH]:
+                gt = UnlabelledImageFolderDataset(
+                    cfg[ConfigValue.TEST_GT_PATH], recursive=True
+                )
+            dataset = UnlabeledEvalDataset(base, gt)
+        sampler = FixedLengthSampler(
+            len(dataset), num_samples=cfg_mod.test_length(cfg), shuffled=False
+        )
+        return dataset, sampler
+
+    def set_test_data(self, path: str):
+        self.cfg[ConfigValue.TEST_DATA_PATH] = path
+        self.cfg[ConfigValue.TEST_DATASET_TYPE] = None
+        cfg_mod.infer_datasets(self.cfg)
+
+    def set_test_label(self, path: str):
+        self.cfg[ConfigValue.TEST_LABEL_PATH] = path
+
+    def set_test_gt_data(self, path: str):
+        self.cfg[ConfigValue.TEST_GT_PATH] = path
+
+    # ------------------------------------------------------------------
+    # Evaluation
+    # ------------------------------------------------------------------
+
+    def evaluate(self):
+        """Parity: eval.py:46-61."""
+        if self.testset is None:
+            if not self.cfg.get(ConfigValue.TEST_DATA_PATH):
+                raise ValueError("Test dataset not set")
+            self.testset, self.test_sampler = self.test_data()
+        os.makedirs(self.run_dir_path, exist_ok=True)
+        setup_logging(self.run_dir_path, "log.txt")
+        logger.info(separator())
+        logger.info("EVALUATING...")
+        self.reset_metrics()
+        self._evaluate(output_callback=self.eval_output_callback(),
+                       picks_for_all=True)
+        logger.info("EVALUATION RESULT: %s", self.eval_state_str())
+        logger.info(separator())
+
+    def eval_output_callback(self):
+        def callback(idx: int, outputs: Dict, item: Dict):
+            self.save_image_outputs(
+                outputs, item, os.path.join(self.run_dir_path, "eval_imgs"),
+                "{name}_{desc}.png", "{name}_{desc}.txt",
+            )
+
+        return callback
+
+    def _forward(self, inp: torch.Tensor, generator: torch.Generator):
+        return eval_step(self.denoiser, {"inp": inp}, generator=generator)
+
+    def _add_psnr(self, outputs: Dict, item: Dict) -> None:
+        if item["gt"] is None:
+            return
+        shape = item["image_shape"]
+        gt = np.asarray(item["gt"])[: shape[0], : shape[1]]
+        for key, name in self.img_outputs(prefix="psnr").items():
+            img = unpad(outputs[key][0, :, :, 0].cpu().numpy(), shape)
+            self.eval_history[name] += calculate_psnr(img[None], gt[None])
+
+    def _evaluate(self, output_callback: Optional[Callable] = None,
+                  picks_for_all: bool = False):
+        """Dense eval pass (train.py:887-1116): per test micrograph run the
+        dense model, accumulate PSNR when gt is present, and hand outputs to
+        the artifact callback.  ``picks_for_all``: the callback exports
+        picks for EVERY item, which enables one batched NMS call a group."""
+        batch_size = max(int(self.cfg[ConfigValue.TEST_MINIBATCH_SIZE] or 1), 1)
+        indices = list(iter(self.test_sampler))
+        use_contam = bool(self.cfg.get(ConfigValue.EXCLUDE_CONTAM, False))
+        nms_radius = int(self.cfg[ConfigValue.NMS])
+        max_peaks = int(self.cfg.get(ConfigValue.MAX_PEAKS, 2048))
+        # The rot4 fold needs square inputs unless the denoiser has the
+        # rectangular two-lane fold.
+        square = self.denoiser.blindspot and not self.denoiser.supports_rect_dense
+
+        def finish(i, per, item):
+            self.eval_history["n"] += 1
+            self._add_psnr(per, item)
+            if output_callback:
+                output_callback(i, per, item)
+
+        carried = None
+        idx = 0
+        while idx < len(indices):
+            if carried is not None:
+                first, carried = carried, None
+            else:
+                first = self.testset.test_item(indices[idx], pad_multiple=32,
+                                               square=square)
+            if max(first["inp"].shape[1:3]) > self.tile_eval_threshold:
+                # Giant micrographs go through halo tiling.
+                finish(idx, self._evaluate_tiled(first, self._generator),
+                       first)
+                idx += 1
+                continue
+
+            # Group consecutive same-shape micrographs into one batch; a
+            # shape-boundary item is carried into the next group (folder
+            # datasets decode from disk on every test_item call).
+            group = [first]
+            while len(group) < batch_size and idx + len(group) < len(indices):
+                nxt = self.testset.test_item(indices[idx + len(group)],
+                                             pad_multiple=32, square=square)
+                if nxt["inp"].shape != first["inp"].shape:
+                    carried = nxt
+                    break
+                group.append(nxt)
+
+            inp = torch.from_numpy(
+                np.concatenate([it["inp"] for it in group], axis=0)
+            ).to(self.device)
+            outputs = self._forward(inp, self._generator)
+            shape = first["image_shape"]
+            group_picks = None
+            if (len(group) > 1 and picks_for_all
+                    and PipelineOutput.DETECT in outputs
+                    and all(it["image_shape"] == shape for it in group)):
+                # One NMS call over the group (nms_batch_device, then
+                # nms_batch_trim with the capped-list retry).  Contamination
+                # seeding needs the denoised maps on the host:
+                # find_contamination is numpy.
+                suppressed = None
+                if use_contam and PipelineOutput.IMG_DENOISED in outputs:
+                    from spr_pick_tpu_torch.ops.algorithms import \
+                        find_contamination
+
+                    den = outputs[PipelineOutput.IMG_DENOISED][
+                        :, : shape[0], : shape[1], 0].cpu().numpy()
+                    suppressed = np.stack(
+                        [find_contamination(d) for d in den]).astype(bool)
+                group_picks = nms_batch_to_host(
+                    outputs[PipelineOutput.DETECT][:, : shape[0], : shape[1], 0],
+                    nms_radius, threshold=0.02, max_peaks=max_peaks,
+                    suppressed=suppressed,
+                )
+            for j, item in enumerate(group):
+                per = {k: v[j : j + 1] for k, v in outputs.items()
+                       if v.ndim == 4}
+                if group_picks is not None:
+                    per["_picks"] = group_picks[j]
+                finish(idx + j, per, item)
+            idx += len(group)
+        # Every artifact is on disk when this returns.
+        self._flush_exports()
+
+    # ------------------------------------------------------------------
+    # Halo tiling
+    # ------------------------------------------------------------------
+
+    def _evaluate_tiled(self, item: Dict, generator: torch.Generator) -> Dict:
+        """Halo-tiled dense pass for a micrograph above
+        `tile_eval_threshold` (train.py:1118-1152): fixed-size tiles with a
+        halo run through the same dense forward, each chunk with fresh noise
+        from ``generator``, and are stitched on the device.  Returns
+        per-image outputs shaped like the whole-image path's."""
+        from spr_pick_tpu_torch.parallel.tiling import tiled_dense_apply
+
+        apply_tiles = self._tile_apply_fn(generator)
+        image = torch.from_numpy(
+            np.ascontiguousarray(item["inp"][0, :, :, 0])).to(self.device)
+        halo = self.tile_eval_halo
+        if halo == "auto":
+            halo = self._calibrated_halo(apply_tiles, image,
+                                         item.get("image_shape"))
+        stitched = tiled_dense_apply(
+            apply_tiles, image, tile=self.tile_eval_size, halo=halo, align=32,
+        )
+        return {k: v[None, :, :, None] for k, v in stitched.items()}
+
+    def _tile_apply_fn(self, generator: torch.Generator):
+        """The dense forward over a chunk of windows, keeping only the
+        per-pixel maps of the window's shape; each call draws fresh noise
+        from ``generator``, so no two chunks share a noise field."""
+
+        def apply_tiles(chunk):
+            outputs = self._forward(chunk, generator)
+            return {k: v for k, v in outputs.items()
+                    if v.ndim == 4 and v.shape[1:3] == chunk.shape[1:3]}
+
+        return apply_tiles
+
+    def _calibrated_halo(self, apply_tiles, image: torch.Tensor,
+                         image_shape=None) -> int:
+        """tile_eval_halo="auto": the halo from the model's measured context
+        decay on a central crop (train.py:1154-1217), cached per weight set.
+
+        The probe is cropped from the UNPADDED content (a crop of pad can
+        understate the decay), and calibration runs at a SMALLER tile than
+        production so the probe has window edges with exactly-halo context
+        (`calibrate_halo`).  When no candidate meets the tolerance, the
+        widest usable candidate (default 96) is used with a warning."""
+        from spr_pick_tpu_torch.parallel.tiling import (calibrate_halo,
+                                                        usable_halos)
+
+        fp = self._weights_fingerprint()
+        if self._auto_halo is not None and self._auto_halo[0] == fp:
+            return self._auto_halo[1]
+        ih, iw = image_shape if image_shape is not None else image.shape
+        ih, iw = min(ih, image.shape[0]), min(iw, image.shape[1])
+        side = min(ih, iw, self.tile_eval_size + 2 * max(HALO_CANDIDATES) + 32)
+        side -= side % 32
+        y0 = (ih - side) // 2
+        x0 = (iw - side) // 2
+        probe = image[y0 : y0 + side, x0 : x0 + side]
+        cal_tile = min(
+            self.tile_eval_size,
+            max(128, (side - max(HALO_CANDIDATES)) // 2 // 32 * 32),
+        )
+        try:
+            halo, curve = calibrate_halo(apply_tiles, probe, tile=cal_tile,
+                                         halos=HALO_CANDIDATES, align=32)
+            logger.info(
+                "tile halo calibrated to %d (probe %dpx, tile %d; p99 "
+                "deviation curve: %s)", halo, side, cal_tile,
+                {k: round(v, 4) for k, v in curve.items()},
+            )
+        except ValueError as exc:
+            usable = usable_halos((side, side), cal_tile, HALO_CANDIDATES)
+            halo = max(usable, default=96)
+            curve = getattr(exc, "curve", {})
+            logger.warning("halo auto-calibration inconclusive (%s); using %d",
+                           exc, halo)
+        self._auto_halo = (fp, halo, curve)
+        return halo
+
+    def _weights_fingerprint(self):
+        """(step, float32 abs-sum of the trainable weights): two weight sets
+        at the same step still differ by the checksum.  One scalar crosses
+        to the host."""
+        d = self.denoiser
+        tensors = list(d.model.parameters()) + list(d.l_params.values())
+        if d.sigma_model is not None:
+            tensors += list(d.sigma_model.parameters())
+        with torch.no_grad():
+            total = sum(t.float().abs().sum() for t in tensors)
+        return self.step, float(total)
+
+    # ------------------------------------------------------------------
+    # Artifacts
+    # ------------------------------------------------------------------
+
+    def _submit_export(self, fn, *args) -> None:
+        """Run an artifact write on the export pool (inline when
+        SPR_EXPORT_THREADS=0).  `_flush_exports` joins and re-raises."""
+        n = int(os.environ.get("SPR_EXPORT_THREADS", "4"))
+        if n <= 0:
+            fn(*args)
+            return
+        if self._export_pool is None:
+            self._export_pool = ThreadPoolExecutor(
+                max_workers=n, thread_name_prefix="spr-export")
+        self._pending_exports.append(self._export_pool.submit(fn, *args))
+        # Backpressure: each pending future pins a quantised map; past a
+        # small multiple of the workers, sweep finished futures (re-raising
+        # their failures) and block on the oldest.
+        if len(self._pending_exports) > 4 * n:
+            keep = []
+            for i, fut in enumerate(self._pending_exports):
+                if i == 0 or fut.done():
+                    fut.result()
+                else:
+                    keep.append(fut)
+            self._pending_exports = keep
+
+    def _flush_exports(self) -> None:
+        """Wait for all in-flight artifact writes; propagate any failure."""
+        pending, self._pending_exports = self._pending_exports, []
+        for fut in pending:
+            fut.result()
+
+    def img_outputs(self, prefix: str = None) -> Dict:
+        outputs = {PipelineOutput.IMG_DENOISED: "out"}
+        if self.cfg[ConfigValue.PIPELINE] == Pipeline.SSDN:
+            outputs[PipelineOutput.IMG_MU] = "mu_out"
+        if prefix:
+            outputs = {k: f"{prefix}_{v}" for k, v in outputs.items()}
+        return outputs
+
+    def save_image_outputs(self, outputs: Dict, item: Dict, output_dir: str,
+                           fileformat: str, scoreformat: str = None):
+        """nsy/out/out-mu/out-target/out-std/pred_tar PNGs and the NMS
+        `_scores.txt` (train.py:1253-1324)."""
+        os.makedirs(output_dir, exist_ok=True)
+        name = item["name"]
+        shape = item["image_shape"]
+
+        def path_for(desc, fmt):
+            return os.path.join(
+                output_dir, fmt.format(name=name, iter=self.iteration,
+                                       desc=desc))
+
+        def unpad_save(arr, desc):
+            if isinstance(arr, torch.Tensor):
+                # Quantise on the device; the copy to the host, the PNG
+                # encode and the write run on the export pool.
+                u8 = quantize_u8_device(arr, shape)
+                self._submit_export(save_u8_image, u8, path_for(desc, fileformat))
+                return
+            img = unpad(np.asarray(arr)[0, :, :, 0], shape)
+            self._submit_export(save_array_image, img, path_for(desc, fileformat))
+
+        unpad_save(item["inp"], "nsy")
+        if PipelineOutput.IMG_DENOISED in outputs:
+            unpad_save(outputs[PipelineOutput.IMG_DENOISED], "out")
+        if PipelineOutput.IMG_MU in outputs:
+            unpad_save(outputs[PipelineOutput.IMG_MU], "out-mu")
+        if item.get("hm") is not None:
+            unpad_save(item["hm"], "out-target")
+        if PipelineOutput.MODEL_STD_DEV in outputs:
+            unpad_save(outputs[PipelineOutput.MODEL_STD_DEV], "out-std")
+        if PipelineOutput.DETECT in outputs and scoreformat is not None:
+            unpad_save(outputs[PipelineOutput.DETECT], "pred_tar")
+            heatmap = outputs[PipelineOutput.DETECT][0, : shape[0], : shape[1], 0]
+            suppressed = None
+            if (outputs.get("_picks") is None
+                    and self.cfg.get(ConfigValue.EXCLUDE_CONTAM, False)
+                    and PipelineOutput.IMG_DENOISED in outputs):
+                from spr_pick_tpu_torch.ops.algorithms import \
+                    find_contamination
+
+                den = unpad(
+                    outputs[PipelineOutput.IMG_DENOISED][0, :, :, 0]
+                    .cpu().numpy(), shape)
+                suppressed = find_contamination(den).astype(bool)
+            self.write_scores(heatmap, name, path_for("scores", scoreformat),
+                              picks=outputs.get("_picks"),
+                              suppressed=suppressed)
+
+    def write_scores(self, heatmap: torch.Tensor, name: str, out_path: str,
+                     picks=None, suppressed=None):
+        """NMS -> `_scores.txt` rows with the 30 px border filter
+        (train.py:1326-1360), including the reference's swapped columns:
+        x_coord holds coords[:, 1] and y_coord coords[:, 0].  ``picks``:
+        precomputed (scores, coords) of the batched path."""
+        if picks is not None:
+            scores, coords = picks
+        else:
+            scores, coords = nms_to_host(
+                heatmap, int(self.cfg[ConfigValue.NMS]), threshold=0.02,
+                max_peaks=int(self.cfg.get(ConfigValue.MAX_PEAKS, 2048)),
+                suppressed=suppressed,
+            )
+        x_max, y_max = heatmap.shape[0] - 30, heatmap.shape[1] - 30
+        with open(out_path, "w") as f:
+            print("image_name\tx_coord\ty_coord\tscore", file=f)
+            for i in range(len(scores)):
+                if 30 < coords[i, 1] < x_max and 30 < coords[i, 0] < y_max:
+                    print(f"{name}\t{coords[i, 1]}\t{coords[i, 0]}\t"
+                          f"{scores[i]}", file=f)
+
+    # ------------------------------------------------------------------
+    # Metrics, run dir
+    # ------------------------------------------------------------------
+
+    def reset_metrics(self):
+        self.eval_history["n"] = 0
+        for metric in self.eval_history.values():
+            if isinstance(metric, Metric):
+                metric.reset()
+
+    def eval_state_str(self, prefix: str = "EVAL") -> str:
+        parts = [
+            "{}={:8.2f}".format(key, float(np.mean(m.accumulated())))
+            for key, m in self.eval_history.items()
+            if isinstance(m, Metric) and not m.empty()
+        ]
+        return "{} | ".format(prefix) + ", ".join(parts)
+
+    @property
+    def run_dir_path(self) -> str:
+        return os.path.join(self.runs_dir, self.run_dir)
+
+    @property
+    def run_dir(self) -> str:
+        if self._run_dir is None:
+            self._run_dir = "{:05d}-eval-{}".format(self.next_run_id(),
+                                                    self.config_name())
+        return self._run_dir
+
+    def next_run_id(self) -> int:
+        run_ids = []
+        if os.path.exists(self.runs_dir):
+            for run_dir_path, _, _ in os.walk(self.runs_dir):
+                try:
+                    run_ids.append(int(os.path.basename(run_dir_path)
+                                       .split("-")[0]))
+                except ValueError:
+                    continue
+        return max(run_ids) + 1 if run_ids else 0
+
+    def config_name(self) -> str:
+        """Parity: train.py:1631-1653."""
+        iterations = (self.iteration if self.iteration > 0
+                      else self.cfg[ConfigValue.ITERATIONS])
+        if iterations >= 1000000:
+            iters = "iter%dm" % (iterations // 1000000)
+        elif iterations >= 1000:
+            iters = "iter%dk" % (iterations // 1000)
+        else:
+            iters = "iter%d" % iterations
+        lst = [cfg_mod.config_name(self.cfg), iters]
+        for key in (ConfigValue.TEST_DATASET_NAME,
+                    ConfigValue.TRAIN_DATASET_NAME):
+            if self.cfg.get(key) is not None:
+                lst = [self.cfg[key]] + lst
+        lst += [str(self.cfg[ConfigValue.ALPHA]), str(self.cfg[ConfigValue.TAU])]
+        return "-".join(lst + [self.mode])

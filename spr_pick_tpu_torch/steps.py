@@ -17,9 +17,11 @@ from spr_pick_tpu_torch.params import PipelineOutput
 
 
 def eval_step(denoiser: Denoiser, batch: Dict[str, torch.Tensor],
-              seed: int = 0, eps: Optional[torch.Tensor] = None,
+              eps: Optional[torch.Tensor] = None,
+              generator: Optional[torch.Generator] = None,
               ) -> Dict[PipelineOutput, torch.Tensor]:
     """Run the dense eval pipeline (no grads, no BN update) on ``batch``;
-    the sample noise is ``eps`` or is drawn from ``seed``."""
+    the sample noise is ``eps``, or is drawn from ``generator``, or from a
+    generator seeded with 0."""
     with torch.inference_mode():
-        return denoiser.joint_pipeline(batch, seed=seed, eps=eps)
+        return denoiser.joint_pipeline(batch, eps=eps, generator=generator)

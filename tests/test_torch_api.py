@@ -134,5 +134,24 @@ def test_pick_arrays_are_the_frame_columns(setup):
 
 
 def test_giant_micrograph_is_refused(setup):
-    with pytest.raises(NotImplementedError, match="halo tiling"):
-        setup["port"].pick(np.zeros((2050, 64), np.float32))
+    """Above 2048 px after padding the Picker no longer refuses: a 2050x64
+    array (padded to 2080x64) takes halo tiling at the production knobs,
+    three windows of 1216x64, and returns picks."""
+    port = setup["port"]
+    port.border = 0
+    calls = []
+    evaluate_tiled = port._ev._evaluate_tiled
+
+    def counting(item, generator):
+        calls.append(item["inp"].shape)
+        return evaluate_tiled(item, generator)
+
+    port._ev._evaluate_tiled = counting
+    try:
+        img = np.random.RandomState(3).rand(2050, 64).astype(np.float32)
+        scores, coords, shape = port.pick_arrays(img)
+    finally:
+        del port._ev._evaluate_tiled
+    assert calls == [(1, 2080, 64, 1)]
+    assert shape == (2050, 64) and len(scores) > 0
+    assert (coords[:, 0] < 64).all() and (coords[:, 1] < 2050).all()

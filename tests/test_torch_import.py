@@ -29,7 +29,9 @@ bad = sorted(
     k for k in sys.modules
     if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "spr_pick_tpu")
 )
-print("IMPORTED", len([k for k in sys.modules if k.startswith("spr_pick_tpu_torch")]))
+mods = sorted(k for k in sys.modules if k.startswith("spr_pick_tpu_torch"))
+print("IMPORTED", len(mods))
+print("MODULES", " ".join(mods))
 print("BAD", bad)
 """
 
@@ -42,6 +44,11 @@ def test_port_imports_no_jax_in_a_fresh_process():
     assert "BAD []" in out.stdout, out.stdout
     n = int(re.search(r"IMPORTED (\d+)", out.stdout).group(1))
     assert n >= 20  # every submodule was imported
+    mods = set(re.search(r"MODULES (.*)", out.stdout).group(1).split())
+    assert {"spr_pick_tpu_torch.parallel.tiling", "spr_pick_tpu_torch.eval",
+            "spr_pick_tpu_torch.cli.cli", "spr_pick_tpu_torch.__main__",
+            "spr_pick_tpu_torch.data.star_export",
+            "spr_pick_tpu_torch.utils.image_io"} <= mods
 
 
 _FORBIDDEN = re.compile(
