@@ -64,7 +64,25 @@ script then exits nonzero and prints no result):
      ``max_peaks``, with its windows' forward, extraction and stitching, K1
      and host parts, at one window a forward and at four; K1 on the
      stitched map in one call; `eval` with artifacts at 1024^2; one tiled
-     pick under torch.profiler.
+     pick under torch.profiler;
+ 10. joint training: one float32 train step (TF32 off) on the card against
+     the CPU at batch 16 on 64^2 crops of the 1024^2 micrograph, folded and
+     sequential flip-TTA, with the same seeded weights, noises and flip
+     draw: loss terms, every gradient, the new BatchNorm statistics, and
+     the parameters after Adam on the same gradients, each to the
+     tolerance it prints; then ``train start`` in a subprocess at the
+     defaults (bf16, batch 16, patch 64) on four 1024^2 MRCs with planted
+     particles and a fifth for validation, 320 iterations with snapshots
+     at 0, 160 and 320 and validations at 0, 160 and 320, and ``train
+     resume`` of a copy from 160 (the command's function, in this
+     process): the snapshots and `final-*.wt` in both,
+     every logged loss finite, the same next sampler draws, and the
+     Picker picking on the card from the trained `.wt`; an in-process
+     `DenoiserTrainer` whose validation passes launch K1 and whose
+     `_scores.txt` rows equal K1's plain version on the same heatmaps;
+     timings: steps/s and samples/s, a step's data plane, forward +
+     backward and Adam (CUDA events), the validation pass, and the idle
+     share of three traced steps.
 
 The weights are random, made from a seed.  The detector's 1x1 classifier
 takes the absolute value of its random weights and a scale and bias fitted
@@ -187,16 +205,22 @@ def kernel_ms(fn, names, runs=RUNS):
     return out
 
 
-def micrograph(shape, seed: int) -> np.ndarray:
+def particle_micrograph(shape, seed: int):
     """Noise with planted Gaussian particles (radius ~6 px) in the leading
-    square of an (H, W) or square micrograph."""
+    square of an (H, W) or square micrograph; returns (image, (row, col)
+    of each particle)."""
     h, w = (shape, shape) if np.isscalar(shape) else shape
     rng = np.random.RandomState(seed)
     img = rng.randn(h, w).astype(np.float32)
     yy, xx = np.mgrid[:h, :w]
-    for cy, cx in rng.randint(40, min(h, w) - 40, size=(h * w // 20000, 2)):
+    centres = rng.randint(40, min(h, w) - 40, size=(h * w // 20000, 2))
+    for cy, cx in centres:
         img += 4.0 * np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / 72.0)
-    return img
+    return img, centres
+
+
+def micrograph(shape, seed: int) -> np.ndarray:
+    return particle_micrograph(shape, seed)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -934,6 +958,358 @@ def time_eval(path: str, mics: dict, tmp: str, gpu: str) -> None:
     log(f"profile eval 1024^2 x{n}: {profile_call(ev.evaluate)} | {gpu}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: joint training on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH = 16     # the cfg default train batch
+TRAIN_PATCH = 64     # the cfg default patch
+TRAIN_ITERS = 320    # the commands' run: 20 steps, snapshots at 0, 160, 320
+# Card against CPU, float32 with TF32 off (cuDNN against oneDNN
+# accumulation).  Gradients are held by relative L2 error, of the whole
+# gradient and of each leaf, not element by element: at batch 16 a
+# rounding-level change in the forward moves single elements across a ReLU
+# or a max-pool tie, which shifts a whole detector leaf by a percent or two
+# (this phase reads 1.2e-3 for the whole gradient and 1.6e-2 for the worst
+# leaf; root PERF.md).  The input BatchNorm's scale and bias have an exact
+# gradient of zero, so they get an absolute bound.
+STEP_RTOL_LOSS = 1e-4
+STEP_ATOL_AUG = 1e-5
+STEP_GRAD_L2 = 1e-2
+STEP_LEAF_L2 = 5e-2
+STEP_ATOL_ZERO_GRAD = 1e-4
+STEP_ATOL_BN = 1e-4
+ADAM_RTOL, ADAM_ATOL = 1e-6, 1e-7
+
+
+def train_cfg(dtype: str):
+    from spr_pick_tpu_torch import cfg as cfg_mod
+    from spr_pick_tpu_torch.params import (ConfigValue, NoiseAlgorithm,
+                                           NoiseValue)
+
+    c = cfg_mod.base()
+    c[ConfigValue.ALGORITHM] = NoiseAlgorithm.SELFSUPERVISED_DENOISING
+    c[ConfigValue.NOISE_STYLE] = "gauss"
+    c[ConfigValue.NOISE_VALUE] = NoiseValue.UNKNOWN_CONSTANT
+    c[ConfigValue.COMPUTE_DTYPE] = dtype
+    return c
+
+
+def tree_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves(tree[k], f"{prefix}/{k}")
+    else:
+        yield prefix, np.asarray(tree)
+
+
+def train_step_card_vs_cpu(img: np.ndarray, fold: bool, flip_p: float):
+    """One float32 train step on the card and on the CPU: same seeded
+    weights, the same 16 crops of the micrograph and PU labels, the same
+    noises and flip draw.  Returns the largest errors found."""
+    from spr_pick_tpu_torch import weights
+    from spr_pick_tpu_torch.denoiser import Denoiser
+    from spr_pick_tpu_torch.params import PipelineOutput as PO
+    from spr_pick_tpu_torch.steps import make_optimizer
+
+    b, half = TRAIN_BATCH, TRAIN_PATCH // 2
+    rng = np.random.RandomState(SEED + 30 + int(fold))
+    ys, xs = rng.randint(half, SIZE - half, size=(2, b))
+    crops = np.stack([img[y - half:y + half, x - half:x + half]
+                      for y, x in zip(ys, xs)])[..., None]
+    target = np.where(rng.rand(b) < 0.5, -1.0, rng.rand(b)).astype(np.float32)
+    eps = [rng.randn(n, TRAIN_PATCH, TRAIN_PATCH, 1).astype(np.float32)
+           for n in ([2 * b] if fold else [b, b])]
+    cpu = Denoiser(train_cfg("f32"), device="cpu", fold_tta=fold)
+    cpu.init_variables(SEED)
+    card = Denoiser(train_cfg("f32"), device="cuda", fold_tta=fold)
+    card.load_variables(*cpu.variables())
+    out = {}
+    for name, den in (("card", card), ("cpu", cpu)):
+        dev = den.device
+        den.train()
+        draws = {"eps": torch.from_numpy(eps[0]).to(dev),
+                 "flip_p": torch.tensor(flip_p, device=dev)}
+        if not fold:
+            draws["eps2"] = torch.from_numpy(eps[1]).to(dev)
+        loss, outs = den.joint_train_pipeline(
+            {"inp": torch.from_numpy(crops).to(dev),
+             "target": torch.from_numpy(target).to(dev)}, 0.8, 0.01, **draws)
+        loss.backward()
+        terms = {k.value: outs[k].detach().cpu().numpy() for k in (
+            PO.LOSS, PO.DENOISE_LOSS, PO.DETECT_LOSS, PO.AUG_LOSS)}
+        terms["mean"] = loss.item()
+        grads = dict(tree_leaves(weights.named_to_flax(
+            (g, k, t.grad) for g, k, t in den.named_trainable())))
+        out[name] = (terms, grads, dict(tree_leaves(den.variables()[1])))
+    (t_card, g_card, s_card), (t_cpu, g_cpu, s_cpu) = out["card"], out["cpu"]
+    err = {"loss": 0.0, "bn": 0.0}
+    for k in t_cpu:
+        if k == "aug_loss":
+            d = float(np.abs(t_card[k] - t_cpu[k]).max())
+            if d > STEP_ATOL_AUG:
+                raise AssertionError(f"train step {k}: card vs CPU {d:.3e}")
+            err["aug"] = d
+            continue
+        rel = float(np.abs((t_card[k] - t_cpu[k]) / t_cpu[k]).max())
+        err["loss"] = max(err["loss"], rel)
+        if rel > STEP_RTOL_LOSS:
+            raise AssertionError(f"train step {k}: card vs CPU rtol {rel:.3e}")
+    if g_card.keys() != g_cpu.keys() or "/l_params/estimated_sigma" not in g_cpu:
+        raise AssertionError("train step: gradient leaves differ")
+    num = den = 0.0
+    for k, want in g_cpu.items():
+        diff = g_card[k] - want
+        if "/input_bn/" in k:
+            d = float(np.abs(diff).max())
+            ok = d <= STEP_ATOL_ZERO_GRAD
+        else:
+            num += float(np.sum(diff ** 2))
+            den += float(np.sum(want ** 2))
+            d = float(np.linalg.norm(diff) / np.linalg.norm(want))
+            err["leaf l2"] = max(err.get("leaf l2", 0.0), d)
+            ok = d <= STEP_LEAF_L2
+        if not ok:
+            raise AssertionError(f"train step gradient {k}: card vs CPU {d:.3e}")
+    err["grad l2"] = (num / den) ** 0.5
+    if err["grad l2"] > STEP_GRAD_L2:
+        raise AssertionError(f"train step gradient: card vs CPU relative L2 "
+                             f"{err['grad l2']:.3e}")
+    for k, want in s_cpu.items():
+        d = float(np.abs(s_card[k] - want).max())
+        err["bn"] = max(err["bn"], d)
+        if d > STEP_ATOL_BN:
+            raise AssertionError(f"train step BatchNorm {k}: card vs CPU {d:.3e}")
+    # Adam on both devices, given the CPU's gradients.
+    opt_card, opt_cpu = make_optimizer(card), make_optimizer(cpu)
+    for pc, pg in zip(opt_cpu.params, opt_card.params):
+        pg.grad = pc.grad.to("cuda")
+    opt_card.step(1e-4)
+    opt_cpu.step(1e-4)
+    for pg, pc in zip(opt_card.params, opt_cpu.params):
+        got, want = pg.detach().cpu().numpy(), pc.detach().numpy()
+        if not np.allclose(got, want, rtol=ADAM_RTOL, atol=ADAM_ATOL):
+            raise AssertionError("Adam on the card differs from the CPU by "
+                                 f"{float(np.abs(got - want).max()):.3e}")
+        err["adam"] = max(err.get("adam", 0.0),
+                          float(np.abs(got - want).max()))
+    return err
+
+
+def write_training_set(d: str):
+    """Four 1024^2 MRCs with planted particles and their coordinates, and
+    one more as the validation set; returns the manifests."""
+    from spr_pick_tpu_torch.data import mrc
+
+    os.makedirs(d)
+    paths = {}
+    for split, seeds in (("train", range(40, 44)), ("val", [44])):
+        rows, coords = [], []
+        for i in seeds:
+            img, centres = particle_micrograph(SIZE, SEED + i)
+            name = f"{split}{i}"
+            path = os.path.join(d, name + ".mrc")
+            mrc.write(path, img)
+            rows.append(f"{name}\t{path}")
+            coords += [f"{name}\t{cx}\t{cy}" for cy, cx in centres]
+        for kind, head, body in (("images", "image_name\tpath", rows),
+                                 ("coords", "image_name\tx_coord\ty_coord",
+                                  coords)):
+            paths[f"{split}_{kind}"] = os.path.join(d, f"{split}_{kind}.txt")
+            with open(paths[f"{split}_{kind}"], "w") as f:
+                f.write(head + "\n" + "\n".join(body) + "\n")
+    return paths
+
+
+def read_scalars(run: str):
+    rows = []
+    with open(os.path.join(run, "scalars.jsonl")) as f:
+        for line in f:
+            rows.append(json.loads(line))
+    return rows
+
+
+def resumed_sampler_draws(run: str, n: int):
+    """The next ``n`` packed indices of the sampler in a run's
+    model_00000320.training."""
+    from spr_pick_tpu_torch.train import resume_run
+
+    t = resume_run(run, iteration=TRAIN_ITERS, device="cuda")
+    t.trainset, t.train_sampler, t.patch_pipeline = t.train_data()
+    t.load_data_state_dict(t._pending_data_state)
+    return t.train_sampler.sample_batch(n)
+
+
+def training_commands(paths, tmp: str, Picker) -> dict:
+    """`train start` at the defaults (bf16, batch 16, patch 64) to 320
+    iterations in a subprocess, then `train resume` of a copy from its
+    snapshot at 160, in this process (the command's own function: a second
+    process start costs ~10 s)."""
+    import shutil
+
+    from spr_pick_tpu_torch.cli import cli
+    from spr_pick_tpu_torch.utils import checkpoint as ckpt
+
+    runs = os.path.join(tmp, "train_runs")
+    half = TRAIN_ITERS // 2
+    secs = {"start": command(
+        "train", "start", "-a", "ssdn", "-n", "gauss", "--noise_value",
+        "const", "-t", paths["train_images"], "-l", paths["train_coords"],
+        "-v", paths["val_images"], "-vl", paths["val_coords"], "--alpha",
+        "0.8", "--tau", "0.01", "--iterations", str(TRAIN_ITERS),
+        "--checkpoint_interval", str(half), "--eval_interval", str(half),
+        "--print_interval", str(TRAIN_ITERS // 4), "--runs_dir", runs)}
+    (name,) = os.listdir(runs)
+    run = os.path.join(runs, name)
+    resumed = os.path.join(tmp, "train_runs_resumed", name)
+    shutil.copytree(run, resumed)
+    t0 = time.perf_counter()
+    cli.start(["train", "resume", resumed, "--iteration", str(half)])
+    secs["resume"] = time.perf_counter() - t0
+    final = f"final-ssdn-gauss-iter{TRAIN_ITERS}-0.8-0.01-joint.wt"
+    want = [f"model_{i:08d}.training" for i in (0, half, TRAIN_ITERS)]
+    losses = {}
+    for label, r in (("start", run), ("resume", resumed)):
+        got = sorted(os.listdir(os.path.join(r, "training_jt")))
+        if got != want or not os.path.isfile(os.path.join(r, final)):
+            raise AssertionError(f"train {label}: snapshots {got}")
+        scalars = [row for row in read_scalars(r)
+                   if row["tag"].startswith("train/")]
+        if not scalars or not all(np.isfinite(row["value"])
+                                  for row in scalars):
+            raise AssertionError(f"train {label}: a logged loss is not finite")
+        losses[label] = [row for row in scalars if row["tag"] == "train/loss"]
+        val = os.listdir(os.path.join(r, "val_imgs_joint"))
+        if f"val44_{half:08d}_scores.txt" not in val:
+            raise AssertionError(f"train {label}: no validation at {half}")
+    a = resumed_sampler_draws(run, 64)
+    b = resumed_sampler_draws(resumed, 64)
+    if not np.array_equal(a, b):
+        raise AssertionError("the resumed run's sampler draws differ from "
+                             "the uninterrupted run's")
+    picks = Picker(os.path.join(run, final)).pick_arrays(
+        os.path.join(os.path.dirname(paths["val_images"]), "val44.mrc"))
+    check_picks(*picks, "Picker on the trained .wt")
+    wa = dict(tree_leaves(ckpt.load(os.path.join(run, final))["trainable"]))
+    wb = dict(tree_leaves(ckpt.load(os.path.join(resumed,
+                                                 final))["trainable"]))
+    drift = max(float(np.abs(wa[k] - wb[k]).max()) for k in wa)
+    first, last = losses["start"][0], losses["start"][-1]
+    log(f"train commands: start {secs['start']:.1f} s (a subprocess), "
+        f"resume from {half} {secs['resume']:.1f} s (in process); snapshots at 0, {half}, {TRAIN_ITERS} and "
+        f"{final} in both; every logged loss finite; the resumed sampler "
+        f"draws the same next 64 packed indices; {len(picks[0])} picks on "
+        f"the card from the trained .wt; loss {first['value']:.4f} at "
+        f"{first['step']} -> {last['value']:.4f} at {last['step']} (a "
+        f"finding, not a gate); resumed vs uninterrupted final weights max "
+        f"|diff| {drift:.3e} (cuDNN and bf16 rounding, not held)")
+    return secs
+
+
+def k1_in_training(paths, tmp: str, nms_cuda, radius: int):
+    """An in-process DenoiserTrainer on the card, bf16 at the defaults, 64
+    iterations with a validation pass every 32: K1's launches in the run,
+    and each validation's `_scores.txt` against K1's plain version on the
+    same heatmap.  Returns (trainer, launches, validations)."""
+    from spr_pick_tpu_torch.params import ConfigValue
+    from spr_pick_tpu_torch.train import DenoiserTrainer
+
+    c = train_cfg("bf16")
+    c[ConfigValue.ITERATIONS] = 64
+    c[ConfigValue.EVAL_INTERVAL] = 32
+    c[ConfigValue.PRINT_INTERVAL] = 32
+    c[ConfigValue.SNAPSHOT_INTERVAL] = 64
+    t = DenoiserTrainer(c, alpha=0.8, tau=0.01,
+                        runs_dir=os.path.join(tmp, "inproc"))
+    t.set_train_data(paths["train_images"])
+    t.set_train_label(paths["train_coords"])
+    t.set_test_data(paths["val_images"])
+    t.set_test_label(paths["val_coords"])
+    maps = []
+    write_scores = t.write_scores
+
+    def capture(heatmap, name, out_path, picks=None, suppressed=None):
+        write_scores(heatmap, name, out_path, picks=picks,
+                     suppressed=suppressed)
+        maps.append((heatmap.clone(), out_path))
+
+    t.write_scores = capture
+    nms_cuda.greedy_nms_cuda.launches = 0
+    t.train()
+    launches = nms_cuda.greedy_nms_cuda.launches
+    if launches < 1 or len(maps) != 3:
+        raise AssertionError(f"training launched K1 {launches} times over "
+                             f"{len(maps)} validations")
+    for hm, path in maps:
+        s, c_, n = nms_cuda.greedy_nms_plain(hm[None], radius, THRESHOLD,
+                                             BIG_CAP)
+        n = int(n[0])
+        s, c_ = s[0, :n].cpu().numpy(), c_[0, :n].cpu().numpy()
+        h, w = hm.shape
+        keep = ((30 < c_[:, 1]) & (c_[:, 1] < h - 30)
+                & (30 < c_[:, 0]) & (c_[:, 0] < w - 30))
+        want = [[str(c_[i, 1]), str(c_[i, 0]), s[i]]
+                for i in np.flatnonzero(keep)]
+        got = [[r[1], r[2], np.float32(r[3])] for r in read_rows(path)[1:]]
+        if got != want or not got:
+            raise AssertionError(f"validation picks {path}: {len(got)} rows, "
+                                 f"K1's plain version {len(want)}")
+    log(f"k1 in training: {launches} launches over {len(maps)} validation "
+        f"passes; each pass's _scores.txt equals K1's plain version on its "
+        f"heatmap ({', '.join(str(len(read_rows(p)) - 1) for _, p in maps)} "
+        f"rows)")
+    return t, launches
+
+
+def time_training(t, gpu: str) -> None:
+    """Steps/s and samples/s at batch 16 bf16 after warm-up, a step's parts
+    with CUDA events, the validation pass, and the idle share of a traced
+    window of steps."""
+    from spr_pick_tpu_torch.steps import train_step
+
+    state, den = t.train_state, t.denoiser
+    den.train()
+    gen = t._train_generator
+    steps = 5
+
+    def batch():
+        return t.patch_pipeline.batch(t.train_sampler.sample_batch(TRAIN_BATCH))
+
+    def window(n=steps):
+        for _ in range(n):
+            train_step(state, batch(), 1e-4, 0.8, 0.01, generator=gen)
+
+    text, med = summary(host_ms(window))
+    log(f"timing train, {steps} steps at batch {TRAIN_BATCH} bf16 "
+        f"{TRAIN_PATCH}^2: {text} | {gpu}")
+    log(f"rate train: {1e3 * steps / med:.3f} steps/s, "
+        f"{1e3 * steps * TRAIN_BATCH / med:.1f} samples/s | {gpu}")
+    parts = {"data plane (sample, gather, labels)": [],
+             "forward + backward": [], "Adam": []}
+    for _ in range(RUNS + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        b = batch()
+        ev[1].record()
+        for p in state.opt.params:
+            p.grad = None
+        loss, _ = den.joint_train_pipeline(b, 0.8, 0.01, generator=gen)
+        loss.backward()
+        ev[2].record()
+        state.opt.step(1e-4)
+        ev[3].record()
+        torch.cuda.synchronize()
+        for (name, ms), i in zip(parts.items(), range(3)):
+            ms.append(ev[i].elapsed_time(ev[i + 1]))
+    for name, ms in parts.items():
+        log(f"timing train step part, {name}: {summary(ms[1:])[0]} | {gpu}")
+    text, _ = summary(host_ms(t.validate))
+    log(f"timing validation pass, one 1024^2 micrograph with its artifacts: "
+        f"{text} | {gpu}")
+    # Three steps: the profiler's bookkeeping of ten (26k kernels) took 8 s.
+    log(f"profile train 3 steps: {profile_call(lambda: window(3))} | {gpu}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the port on "
@@ -1138,6 +1514,33 @@ def main() -> int:
             f"{profile_call(lambda: tiled_picker.pick_arrays(frame))} | {gpu}")
         count_big = k1_rows["k1 4096x5760 stitched"][3]
 
+        # 10. Joint training on the card.
+        t0 = time.perf_counter()
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for fold, flip_p in ((True, 0.3), (False, 0.7)):
+            err = train_step_card_vs_cpu(img, fold, flip_p)
+            log(f"train step float32 card vs CPU, batch {TRAIN_BATCH}, "
+                f"{'folded' if fold else 'sequential'} flip-TTA, flip along "
+                f"{'W' if flip_p <= 0.5 else 'H'}: loss terms max rtol "
+                f"{err['loss']:.2e} (tol {STEP_RTOL_LOSS}), consistency "
+                f"term |diff| {err['aug']:.2e} (tol {STEP_ATOL_AUG}), "
+                f"gradient relative L2 {err['grad l2']:.2e} (tol "
+                f"{STEP_GRAD_L2}), worst leaf {err['leaf l2']:.2e} (tol "
+                f"{STEP_LEAF_L2}; input BatchNorm |diff| <= "
+                f"{STEP_ATOL_ZERO_GRAD}), BatchNorm running stats |diff| "
+                f"{err['bn']:.2e} (tol {STEP_ATOL_BN}), params after Adam on "
+                f"the same gradients |diff| {err['adam']:.2e} (rtol "
+                f"{ADAM_RTOL}, atol {ADAM_ATOL})")
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        paths10 = write_training_set(os.path.join(tmp, "trainset"))
+        training_commands(paths10, tmp, Picker)
+        trainer, launches_in_training = k1_in_training(paths10, tmp,
+                                                       nms_cuda, radius)
+        time_training(trainer, gpu)
+        log(f"phase 10 took {time.perf_counter() - t0:.1f} s")
+
     h, w = shape
     bound_ms, bound_by = k1_bound(h, w, k, count, radius)
     big_bound_ms, big_bound_by = k1_bound(*BIG_SHAPE, BIG_CAP, count_big,
@@ -1163,6 +1566,7 @@ def main() -> int:
         "bound_by_4096x5760": big_bound_by,
         "launches_per_tiled_pick": tiled_launches[0],
         "launches_per_tiled_pick_max_peaks_65536": tiled_launches[1],
+        "launches_in_training": launches_in_training,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

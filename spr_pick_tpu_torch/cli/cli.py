@@ -1,12 +1,18 @@
-"""The `pick` and `eval` command line of the PyTorch port.
+"""The command line of the PyTorch port.
 
+    python -m spr_pick_tpu_torch train start -a ssdn -n gauss \
+        --noise_value const -t imgs.txt -l coords.txt --alpha 0.8 \
+        --tau 0.01 --iterations 200000
+    python -m spr_pick_tpu_torch train resume hi_runs/00000-train-...
     python -m spr_pick_tpu_torch pick -m model.wt mics/ -o picks.star
     python -m spr_pick_tpu_torch eval -m model.wt -d imgs.txt -l coords.txt
 
-The port of `spr_pick_tpu/cli/cli.py`'s `eval` and `pick` subcommands: the
-same flags, defaults and outputs, plus ``--device`` (the GPU unless given).
-Neither command needs pandas or PIL: tables are read and written with the
-`csv` module and PNGs with `zlib`.  `train` is not ported yet.
+The port of `spr_pick_tpu/cli/cli.py`: the same subcommands, flags,
+defaults and outputs, plus ``--device`` (the GPU unless given).  No
+command needs pandas or PIL: tables are read and written with the `csv`
+module and PNGs with `zlib`.  `train start --dn_only` (denoise-only
+training) and ``--mesh`` above 1 (multi-GPU) are refused, naming their
+ROADMAP items.
 """
 
 from __future__ import annotations
@@ -18,12 +24,7 @@ import sys
 from typing import Dict, List, Optional
 
 from spr_pick_tpu_torch import cfg as cfg_mod
-from spr_pick_tpu_torch.params import ConfigValue
-
-_TRAIN_REFUSAL = (
-    "train: training is not ported to spr_pick_tpu_torch yet (ROADMAP.md §1 "
-    "item 3, joint training); train with `python -m spr_pick_tpu train`"
-)
+from spr_pick_tpu_torch.params import ConfigValue, NoiseAlgorithm, NoiseValue
 
 
 def _add_star_args(parser: argparse.ArgumentParser, what: str) -> None:
@@ -42,6 +43,49 @@ def _add_device_arg(parser: argparse.ArgumentParser) -> None:
                         "on the CPU)")
 
 
+def _add_shared_args(parser: argparse.ArgumentParser, start: bool):
+    parser.add_argument("--train_dataset", "-t", required=start,
+                        help="Path to training dataset (TXT manifest).")
+    parser.add_argument("--alpha", "-ap", type=float, required=start,
+                        help="alpha value (denoise-vs-detect blend)")
+    parser.add_argument("--tau", "-tau", type=float, required=start,
+                        help="tau for PU learning - expected fraction of "
+                        "positives")
+    parser.add_argument("--train_gt", "-gt",
+                        help="Path to ground truth dataset")
+    parser.add_argument("--train_label", "-l", required=start,
+                        help="Path to training coordinate labels")
+    parser.add_argument("--validation_dataset", "-v",
+                        help="Validation dataset path")
+    parser.add_argument("--validation_label", "-vl",
+                        help="Validation labels path")
+    parser.add_argument("--validation_gt", "-vgt",
+                        help="Validation ground truth path")
+    parser.add_argument("--iterations", "-iter", required=start, type=int,
+                        help="Number of training iterations")
+    parser.add_argument("--num", "-num", type=int, default=1,
+                        help="Number of eval samples during training")
+    parser.add_argument("--lr", "-lr", type=float, help="learning rate")
+    parser.add_argument("--nms", "-nms", type=int,
+                        help="non-maximum suppression radius")
+    parser.add_argument("--max_peaks", type=int,
+                        help="per-map cap of the NMS pick list (default "
+                        "2048); a full list retries with a doubled cap")
+    parser.add_argument("--bb", "-bb", type=int,
+                        help="bounding box radius of particles")
+    parser.add_argument("--eval_interval", type=int)
+    parser.add_argument("--checkpoint_interval", type=int)
+    parser.add_argument("--print_interval", type=int)
+    parser.add_argument("--train_batch_size", type=int)
+    parser.add_argument("--validation_batch_size", type=int)
+    parser.add_argument("--patch_size", type=int)
+    parser.add_argument("--seed", type=int, help="Base PRNG seed")
+    parser.add_argument("--mesh", type=int,
+                        help="Data-parallel mesh size (only 1: multi-GPU is "
+                        "not ported yet)")
+    _add_device_arg(parser)
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="spr_pick_tpu_torch",
@@ -49,8 +93,36 @@ def build_parser() -> argparse.ArgumentParser:
     )
     sub = parser.add_subparsers(dest="command", required=True)
 
-    train = sub.add_parser("train", help="not ported yet")
-    train.add_argument("rest", nargs=argparse.REMAINDER)
+    # --- train ---
+    train = sub.add_parser("train", help="Train or resume a model")
+    train_sub = train.add_subparsers(dest="train_cmd", required=True)
+    start = train_sub.add_parser("start", help="Start a new training run")
+    _add_shared_args(start, True)
+    start.add_argument("--algorithm", "-a", required=True,
+                       choices=[a.value for a in NoiseAlgorithm],
+                       help="The algorithm to train.")
+    start.add_argument("--noise_style", "-n", required=True,
+                       help="Noise style: gauss{SD}[_{MAX}][_nc] or "
+                       "poisson{LAM}[_{MAX}][_nc]")
+    start.add_argument("--noise_value", choices=[v.value for v in NoiseValue],
+                       help="Whether the noise sigma is known / const / "
+                       "var-estimated")
+    start.add_argument("--dn_only", action="store_true",
+                       help="denoising only (not ported yet)")
+    start.add_argument("--noise_input", action="store_true",
+                       help="Also add the synthetic noise to the network "
+                       "INPUT (denoise-only training; not ported yet)")
+    start.add_argument("--runs_dir", default=cfg_mod.DEFAULT_RUN_DIR)
+    start.add_argument("--profile", action="store_true",
+                       help="Capture a torch.profiler trace of the first "
+                       "print window")
+    resume = train_sub.add_parser("resume", help="Resume a training run")
+    resume.add_argument("run_dir", help="Run directory to resume")
+    resume.add_argument("--iteration", type=int, default=None,
+                        help="Resume from a specific "
+                        "model_{iter:08d}.training snapshot instead of the "
+                        "latest (rollback)")
+    _add_shared_args(resume, False)
 
     # --- eval ---
     ev = sub.add_parser("eval", help="Evaluate a trained model")
@@ -124,6 +196,77 @@ def build_parser() -> argparse.ArgumentParser:
     _add_star_args(pick, ".star outputs")
     _add_device_arg(pick)
     return parser
+
+
+def _apply_shared(cfg: Dict, trainer, args: Dict):
+    for arg, setter in (("train_dataset", trainer.set_train_data),
+                        ("train_gt", trainer.set_train_gt_data),
+                        ("train_label", trainer.set_train_label),
+                        ("validation_dataset", trainer.set_test_data),
+                        ("validation_gt", trainer.set_test_gt_data),
+                        ("validation_label", trainer.set_test_label)):
+        if args.get(arg) is not None:
+            setter(args[arg])
+    mapping = {
+        "iterations": ConfigValue.ITERATIONS,
+        "num": ConfigValue.NUM_EVAL,
+        "eval_interval": ConfigValue.EVAL_INTERVAL,
+        "checkpoint_interval": ConfigValue.SNAPSHOT_INTERVAL,
+        "print_interval": ConfigValue.PRINT_INTERVAL,
+        "train_batch_size": ConfigValue.TRAIN_MINIBATCH_SIZE,
+        "validation_batch_size": ConfigValue.TEST_MINIBATCH_SIZE,
+        "patch_size": ConfigValue.TRAIN_PATCH_SIZE,
+        "alpha": ConfigValue.ALPHA,
+        "tau": ConfigValue.TAU,
+        "seed": ConfigValue.SEED,
+        "mesh": ConfigValue.MESH_SHAPE,
+    }
+    for arg, key in mapping.items():
+        if args.get(arg) is not None:
+            cfg[key] = args[arg]
+    # The loss weights live in cfg; keep a resumed trainer's copies in
+    # sync when --alpha/--tau are passed again.
+    trainer.alpha = float(cfg[ConfigValue.ALPHA])
+    trainer.tau = float(cfg[ConfigValue.TAU])
+
+
+def run_train(args: Dict):
+    from spr_pick_tpu_torch.train import DenoiserTrainer, resume_run
+
+    if args.get("mesh") is not None and args["mesh"] > 1:
+        raise SystemExit(
+            f"--mesh {args['mesh']}: multi-GPU training is not ported yet "
+            "(ROADMAP.md §1 item 6); the port trains on one device")
+    if args["train_cmd"] == "start":
+        if args["dn_only"] or args.get("noise_input"):
+            raise SystemExit(
+                "--dn_only/--noise_input: denoise-only training is not "
+                "ported yet (ROADMAP.md §1 item 4); train it with "
+                "`python -m spr_pick_tpu train start --dn_only`")
+        if args["algorithm"] == "ssdn" and args.get("noise_value") is None:
+            print("error: SSDN requires --noise_value", file=sys.stderr)
+            sys.exit(2)
+        cfg = cfg_mod.base()
+        cfg[ConfigValue.ALGORITHM] = NoiseAlgorithm(args["algorithm"])
+        cfg[ConfigValue.NOISE_STYLE] = args["noise_style"]
+        if args.get("noise_value") is not None:
+            cfg[ConfigValue.NOISE_VALUE] = NoiseValue(args["noise_value"])
+        for arg, key in (("lr", ConfigValue.LEARNING_RATE),
+                         ("bb", ConfigValue.BB), ("nms", ConfigValue.NMS),
+                         ("max_peaks", ConfigValue.MAX_PEAKS)):
+            if args.get(arg) is not None:
+                cfg[key] = args[arg]
+        trainer = DenoiserTrainer(
+            cfg, mode="joint", alpha=args["alpha"], tau=args["tau"],
+            runs_dir=args["runs_dir"], profile=bool(args.get("profile")),
+            device=args.get("device"),
+        )
+    else:
+        trainer = resume_run(args["run_dir"], iteration=args.get("iteration"),
+                             device=args.get("device"))
+        cfg = trainer.cfg
+    _apply_shared(cfg, trainer, args)
+    trainer.train()
 
 
 def run_eval(args: Dict):
@@ -299,8 +442,8 @@ def run_pick(args: Dict):
 def start(argv: Optional[List[str]] = None):
     args = vars(build_parser().parse_args(argv))
     if args["command"] == "train":
-        raise SystemExit(_TRAIN_REFUSAL)
-    if args["command"] == "eval":
+        run_train(args)
+    elif args["command"] == "eval":
         run_eval(args)
     else:
         run_pick(args)

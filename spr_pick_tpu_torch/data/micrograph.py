@@ -1,11 +1,21 @@
-"""Micrograph dataset (evaluation side), pad-to-multiple and unpad.
+"""Micrograph dataset, pad-to-multiple and unpad, and the training data
+planes.
 
-The PyTorch port's copy of `spr_pick_tpu/data/micrograph.py:36-319`
-(parity: `spr_pick/datasets/micrograph.py` and
+The PyTorch port of `spr_pick_tpu/data/micrograph.py` (parity:
+`spr_pick/datasets/micrograph.py` and
 `spr_pick/datasets/image_wrapper.py:221-276`): manifest/dir loading,
-coordinate matching, mask/heatmap construction and whole-image test items,
-without pandas.  Training patches and the device data plane belong to a
-later slice.
+coordinate matching, mask/heatmap construction, whole-image test items and
+training crops, without pandas; and the two data planes of joint training.
+
+`DevicePatchPipeline` keeps the micrograph stack on the device (placed on
+first use) and cuts each batch's crops there with one gather indexed by
+the sampler's decoded (image, y, x) and a flip bit a crop: the host ships
+four (B,) index arrays and the (B,) labels a step.  Labels are point-reads
+of the host heatmaps at the sampled centre, whatever the flip (as the
+reference's micrograph.py:77 reads them).  `HostPatchPipeline` cuts the
+crops on the host (zero-padded at the borders) when the stack exceeds the
+device budget.  Both draw their flips from their own
+``RandomState(0)``, whose state is resumable.
 """
 
 from __future__ import annotations
@@ -16,10 +26,12 @@ import sys
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from spr_pick_tpu_torch.data import files as file_utils
 from spr_pick_tpu_torch.data import table as tbl
 from spr_pick_tpu_torch.data.loader import IMAGE_EXTS, load_images_from_list
+from spr_pick_tpu_torch.data.sampler import unpack_index
 from spr_pick_tpu_torch.ops.heatmap import as_gaussian, as_mask
 
 
@@ -92,8 +104,8 @@ def unpad(img: np.ndarray, shape: Tuple[int, int]) -> np.ndarray:
 
 
 class MicrographDataset:
-    """Micrographs + particle coordinates -> masks, heatmaps and whole-image
-    test items.
+    """Micrographs + particle coordinates -> masks, heatmaps, whole-image
+    test items and ``crop``-px training crops.
 
     Parity: micrograph.py:26-299.  Images are float32 numpy in [0, 1] (MRC
     min-max-quantised, see data/loader.py), held as nested lists indexed
@@ -102,10 +114,11 @@ class MicrographDataset:
 
     def __init__(self, image_path: str, coordinate_path: Optional[str],
                  radius: int = 3, gt_path: Optional[str] = None, bb: int = 32,
-                 verbose: bool = True):
+                 verbose: bool = True, crop: int = 72):
         self.image_path = image_path
         self.coordinate_path = coordinate_path
         self.radius = radius
+        self.crop = crop
         self.gt_path = gt_path
         self.bb = bb
         self.verbose = verbose
@@ -228,6 +241,18 @@ class MicrographDataset:
     def __len__(self):
         return self.num_images
 
+    def train_item(self, packed_index: int):
+        """Packed index -> (centred crop, centre label, name).  Parity:
+        micrograph.py:271-287 (the reference's micrograph.py:60-122)."""
+        g, i, coord = (int(v) for v in unpack_index(packed_index))
+        img = self.images[g][i]
+        w = img.shape[1]
+        x, y = coord % w, coord // w
+        half = self.crop // 2
+        patch = _crop_zero_pad(img, x - half, y - half, self.crop)
+        label = float(self.hms[g][i].ravel()[coord])
+        return patch, label, self.names[g][i]
+
     def test_item(self, index: int, pad_multiple: int = 32,
                   square: bool = False) -> Dict:
         """Whole padded micrograph + metadata (micrograph.py:128-164);
@@ -244,3 +269,180 @@ class MicrographDataset:
             "gt": self.gts[g][i] if self.gts else None,
             "target": self.targets[g][i],
         }
+
+
+def _crop_zero_pad(img: np.ndarray, x0: int, y0: int, size: int) -> np.ndarray:
+    """Crop with zero fill outside bounds (PIL .crop semantics)."""
+    h, w = img.shape[:2]
+    out = np.zeros((size, size), dtype=img.dtype)
+    sx0, sy0 = max(0, x0), max(0, y0)
+    sx1, sy1 = min(w, x0 + size), min(h, y0 + size)
+    if sx1 > sx0 and sy1 > sy0:
+        out[sy0 - y0 : sy1 - y0, sx0 - x0 : sx1 - x0] = img[sy0:sy1, sx0:sx1]
+    return out
+
+
+class DevicePatchPipeline:
+    """The training data plane with the micrograph stack on the device.
+
+    Parity: `spr_pick_tpu/data/micrograph.py:332-513`.  All micrographs are
+    stacked into one zero-padded (N, H, W) float32 array, copied to
+    ``device`` on first use (`images_dev`), and each batch is one gather
+    from it.  Raises ValueError when the padded stack would exceed
+    ``max_bytes`` (the trainer then takes `HostPatchPipeline`).
+    """
+
+    def __init__(self, dataset: MicrographDataset, crop: int,
+                 max_bytes: int = 4 << 30, device: torch.device | str = "cpu"):
+        self.crop = crop
+        self.device = torch.device(device)
+
+        flat_images, flat_hms = [], []
+        self.flat_of: Dict[Tuple[int, int], int] = {}
+        for g, group in enumerate(dataset.images):
+            for i, img in enumerate(group):
+                self.flat_of[(g, i)] = len(flat_images)
+                flat_images.append(img)
+                flat_hms.append(dataset.hms[g][i])
+
+        hmax = max(im.shape[0] for im in flat_images)
+        wmax = max(im.shape[1] for im in flat_images)
+        nbytes = len(flat_images) * hmax * wmax * 4
+        if nbytes > max_bytes:
+            raise ValueError(
+                f"micrograph stack ({nbytes / 2**30:.1f} GiB padded to "
+                f"{len(flat_images)}x{hmax}x{wmax}) exceeds the device "
+                f"data-plane budget ({max_bytes / 2**30:.1f} GiB)"
+            )
+        stack = np.zeros((len(flat_images), hmax, wmax), np.float32)
+        for n, im in enumerate(flat_images):
+            stack[n, : im.shape[0], : im.shape[1]] = im
+        self.widths = np.array([im.shape[1] for im in flat_images], np.int32)
+        self.heights = np.array([im.shape[0] for im in flat_images], np.int32)
+        # Placed on first use; the host heatmaps stay on the host for the
+        # label point-reads.
+        self._images_host: Optional[np.ndarray] = stack
+        self._images_dev: Optional[torch.Tensor] = None
+        self._hms_host = flat_hms
+        self._np_rng = np.random.RandomState(0)
+
+    @property
+    def images_dev(self) -> torch.Tensor:
+        """The (N, H, W) stack on the device, copied there on first use."""
+        if self._images_dev is None:
+            self._images_dev = torch.from_numpy(self._images_host).to(
+                self.device)
+            self._images_host = None
+        return self._images_dev
+
+    def state_dict(self):
+        """Flip-augment RNG state (resumable data plane)."""
+        return {"flip_rng_state": self._np_rng.get_state()}
+
+    def load_state_dict(self, sd) -> None:
+        self._np_rng.set_state(sd["flip_rng_state"])
+
+    def decode(self, packed_indices: np.ndarray):
+        """Packed sampler indices -> (flat image idx, ys, xs) int32 arrays
+        of the same shape."""
+        g, i, coord = unpack_index(packed_indices)
+        flat = np.array(
+            [self.flat_of[(int(gg), int(ii))]
+             for gg, ii in zip(g.reshape(-1), i.reshape(-1))],
+            np.int32,
+        ).reshape(np.shape(packed_indices))
+        w = self.widths[flat]
+        return flat, (coord // w).astype(np.int32), (coord % w).astype(np.int32)
+
+    def labels_for(self, flat, ys, xs) -> np.ndarray:
+        """Host point-read of the centre-pixel heatmap labels (any shape).
+        Parity: the reference's micrograph.py:77, ``hm.ravel()[coord]``."""
+        f = np.asarray(flat).reshape(-1)
+        y = np.asarray(ys).reshape(-1)
+        x = np.asarray(xs).reshape(-1)
+        out = np.empty(len(f), np.float32)
+        for img_idx in np.unique(f):
+            m = f == img_idx
+            out[m] = self._hms_host[int(img_idx)][y[m], x[m]]
+        return out.reshape(np.shape(flat))
+
+    def check_in_bounds(self, flat, ys, xs) -> None:
+        """Reject centres whose crop would leave the true image: the gather
+        does no zero fill (the host path's `_crop_zero_pad` does), so the
+        crop would read the stack's padding or another row.  The sampler's
+        margins (72 / 140) keep every draw in bounds for crops <= 144."""
+        half = self.crop // 2
+        rest = self.crop - half
+        f = np.asarray(flat).reshape(-1)
+        y = np.asarray(ys).reshape(-1)
+        x = np.asarray(xs).reshape(-1)
+        bad = ((y < half) | (x < half) | (y + rest > self.heights[f])
+               | (x + rest > self.widths[f]))
+        if bad.any():
+            j = int(np.flatnonzero(bad)[0])
+            raise ValueError(
+                f"patch centre ({int(y[j])},{int(x[j])}) of image {int(f[j])} "
+                f"(h={int(self.heights[f[j]])}, w={int(self.widths[f[j]])}) "
+                f"puts the {self.crop}-px crop out of bounds. Sampler margins "
+                f"must be >= crop/2."
+            )
+
+    def gather(self, flat, ys, xs, flips) -> torch.Tensor:
+        """(B, crop, crop, 1) crops centred at (ys, xs) of images ``flat``,
+        each mirrored along W where its flip bit is set: one gather from
+        the device stack."""
+        half = self.crop // 2
+        idx = torch.from_numpy(np.stack(
+            [flat, np.asarray(ys) - half, np.asarray(xs) - half, flips]
+        ).astype(np.int64)).to(self.device)
+        f, y0, x0, fl = idx
+        j = torch.arange(self.crop, device=self.device)
+        rows = y0[:, None] + j
+        cols = x0[:, None] + torch.where(fl[:, None] > 0, self.crop - 1 - j, j)
+        images = self.images_dev
+        return images[f[:, None, None], rows[:, :, None],
+                      cols[:, None, :]][..., None]
+
+    def batch(self, packed_indices: np.ndarray) -> Dict[str, torch.Tensor]:
+        flat, ys, xs = self.decode(packed_indices)
+        self.check_in_bounds(flat, ys, xs)
+        labels = self.labels_for(flat, ys, xs)
+        flips = (self._np_rng.rand(len(flat)) < 0.5).astype(np.int32)
+        return {"inp": self.gather(flat, ys, xs, flips),
+                "target": torch.from_numpy(labels).to(self.device)}
+
+
+class HostPatchPipeline:
+    """Host fallback of the joint data plane: numpy crops straight from the
+    dataset's arrays, so capacity is bounded by host memory like the
+    reference's DataLoader path.  Parity:
+    `spr_pick_tpu/data/micrograph.py:516-552`."""
+
+    def __init__(self, dataset: MicrographDataset, crop: int,
+                 device: torch.device | str = "cpu"):
+        self.dataset = dataset
+        self.crop = crop
+        self.device = torch.device(device)
+        self._np_rng = np.random.RandomState(0)
+
+    def state_dict(self):
+        """Flip-augment RNG state (resumable data plane)."""
+        return {"flip_rng_state": self._np_rng.get_state()}
+
+    def load_state_dict(self, sd) -> None:
+        self._np_rng.set_state(sd["flip_rng_state"])
+
+    def batch(self, packed_indices: np.ndarray) -> Dict[str, torch.Tensor]:
+        packed = np.asarray(packed_indices).reshape(-1)
+        b = len(packed)
+        inp = np.empty((b, self.crop, self.crop, 1), np.float32)
+        target = np.empty((b,), np.float32)
+        flips = self._np_rng.rand(b) < 0.5
+        for j, p in enumerate(packed):
+            patch, label, _ = self.dataset.train_item(int(p))
+            if flips[j]:
+                patch = patch[:, ::-1]
+            inp[j, :, :, 0] = patch
+            target[j] = label
+        return {"inp": torch.from_numpy(inp).to(self.device),
+                "target": torch.from_numpy(target).to(self.device)}

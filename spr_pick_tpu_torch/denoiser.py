@@ -1,21 +1,29 @@
-"""The evaluation side of the pipeline engine.
+"""The pipeline engine of the joint mode.
 
-PyTorch port of `spr_pick_tpu/denoiser.py` for dense inference: model
-building from the cfg (`__post_init__`), the dense-route preconditions, the
-fused dense forward (`_apply_model_fused`, :235-264), the noise estimate and
-the `joint_pipeline` branch with ``train=False`` (:324-432).  Training, the
-denoise-only pipelines and the stitch detector belong to later slices.
+PyTorch port of `spr_pick_tpu/denoiser.py`: model building from the cfg
+and the flip-TTA fold policy (`__post_init__`, :60-143), the dense-route
+preconditions, the fused dense forward (`_apply_model_fused`, :235-264),
+the noise estimate, and `joint_pipeline` (:324-432), split here into the
+dense evaluation branch (`joint_pipeline`) and the training branch on
+crops (`joint_train_pipeline`).  The denoise-only pipelines and the stitch
+detector belong to later slices.
 
 The engine owns its modules (`JointNetwork`, the `var` sigma net) and the
 learnable constant sigma on ``device``: the GPU unless the caller passes
-another (`utils/device.py`).  The compute dtype comes from
-``cfg[COMPUTE_DTYPE]``: bf16 by default, float32 on request; the heads
-return float32 and the NLL/PME math runs in float32.
+another (`utils/device.py`).  JAX's (trainable, static) variable split is
+the modules' parameters and BatchNorm buffers (`trainable_parameters`,
+`variables`), and flax's ``mutable=["batch_stats"]`` is train mode
+(`train()`): BatchNorm then normalises with the batch's statistics and
+updates its running statistics in place.  The compute dtype comes from
+``cfg[COMPUTE_DTYPE]``: bf16 by default, float32 on request; parameters
+and BatchNorm statistics stay float32, the heads return float32 and the
+NLL/PME math runs in float32.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import os
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -45,10 +53,25 @@ def _num_output_components(channels: int, diagonal: bool) -> int:
 
 class Denoiser:
     """Holds the cfg, the modules and the learnable sigma; runs the joint
-    evaluation pipeline."""
+    pipeline for evaluation and for training.
+
+    ``fold_tta``: run the flip-TTA consistency forward folded into the
+    primary one as a 2B batch (one BatchNorm update over the fold) instead
+    of a second, sequential forward (two updates, the second starting from
+    the first's running statistics).  None resolves as in the JAX package
+    (denoiser.py:60-87): off at a train batch of exactly 16, on otherwise;
+    ``SPR_FOLD_TTA=0/1`` overrides either way.
+    """
 
     def __init__(self, cfg: Dict, mode: str = "joint",
-                 device: torch.device | str | None = None):
+                 device: torch.device | str | None = None,
+                 fold_tta: Optional[bool] = None):
+        env_fold = os.environ.get("SPR_FOLD_TTA")
+        if env_fold in ("0", "1"):
+            fold_tta = env_fold == "1"
+        elif fold_tta is None:
+            fold_tta = cfg.get(ConfigValue.TRAIN_MINIBATCH_SIZE) != 16
+        self.fold_tta = fold_tta
         if mode != "joint":
             raise NotImplementedError(
                 f"mode {mode!r}: the denoise-only pipelines are not ported "
@@ -95,7 +118,7 @@ class Denoiser:
                 and self.noise_value == NoiseValue.UNKNOWN_CONSTANT):
             # Learnable scalar sigma (denoiser_v2.py:158-164).
             self.l_params[ESTIMATED_SIGMA] = torch.zeros(
-                (1, 1, 1, 1), device=self.device
+                (1, 1, 1, 1), device=self.device, requires_grad=True
             )
 
     # ------------------------------------------------------------------
@@ -114,13 +137,36 @@ class Denoiser:
                 t.zero_()
 
     def load_variables(self, trainable: Dict, static: Dict) -> None:
-        """Load the numpy (trainable, static) trees of a checkpoint."""
+        """Load the numpy (trainable, static) trees of a checkpoint, in
+        place (an optimizer keeps its references)."""
         states = weights.flax_to_state(trainable, static)
         self.model.load_state_dict(states["model"])
         if self.sigma_model is not None:
             self.sigma_model.load_state_dict(states["sigma"])
-        for k in self.l_params:
-            self.l_params[k] = states["l_params"][k].to(self.device)
+        with torch.no_grad():
+            for k, t in self.l_params.items():
+                t.copy_(states["l_params"][k])
+
+    def named_trainable(self) -> List[Tuple[str, str, torch.Tensor]]:
+        """(group, state key, tensor) of every trainable tensor, in a fixed
+        order: the JAX trainable tree's leaves (`weights.py` maps the
+        names)."""
+        out = [("model", k, p) for k, p in self.model.named_parameters()]
+        if self.sigma_model is not None:
+            out += [("sigma", k, p)
+                    for k, p in self.sigma_model.named_parameters()]
+        out += [("l_params", k, t) for k, t in self.l_params.items()]
+        return out
+
+    def trainable_parameters(self) -> List[torch.Tensor]:
+        return [t for _, _, t in self.named_trainable()]
+
+    def train(self, mode: bool = True) -> "Denoiser":
+        """Train mode (batch statistics, running updates) or eval mode."""
+        self.model.train(mode)
+        if self.sigma_model is not None:
+            self.sigma_model.train(mode)
+        return self
 
     def variables(self) -> Tuple[Dict, Dict]:
         """The inverse of `load_variables`: (trainable, static) numpy trees."""
@@ -214,8 +260,81 @@ class Denoiser:
         if eps is None and generator is None:
             generator = torch.Generator(device=inp.device).manual_seed(0)
         net_out, hm_logits = self._apply_model(inp, eps, generator)
-        hm_p = losses.clamped_sigmoid(hm_logits)
+        zero = torch.zeros((), device=inp.device)
+        outputs = self._nll_outputs(inp, net_out, batch)
+        outputs.update({
+            PipelineOutput.DETECT_LOSS: zero,
+            PipelineOutput.AUG_LOSS: zero,
+            PipelineOutput.DETECT: losses.clamped_sigmoid(hm_logits),
+        })
+        return outputs
 
+    def joint_train_pipeline(
+        self, batch: Dict[str, torch.Tensor], alpha: float, tau: float,
+        eps: Optional[torch.Tensor] = None,
+        flip_p: Optional[torch.Tensor] = None,
+        eps2: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, Dict[PipelineOutput, torch.Tensor]]:
+        """The training branch of `joint_pipeline` (denoiser.py:324-432;
+        denoiser_v2.py:253-589): crops, strided detector, the modules in
+        train mode.
+
+        batch: inp (B,H,W,1) crops and target (B,) PU labels (-1
+        unlabeled).  Flip-TTA: one uniform draw ``flip_p`` flips the
+        batch along W (``flip_p <= 0.5``) or H; the flipped forward runs
+        folded with the primary one (noise ``eps`` of 2B) or after it
+        (``eps`` then ``eps2``, B each), and its logits are flipped back.
+        Loss = alpha * nll + (1 - alpha) * pu_loss(slack 4) + 0.1 *
+        mean((p - p_flipped)^2).  Draws not given come from ``generator``
+        in the order flip_p, eps, eps2.  Returns (mean loss, outputs).
+        """
+        inp = batch["inp"]
+        b = inp.shape[0]
+
+        def normal(n):
+            return torch.randn((n,) + tuple(inp.shape[1:]),
+                               generator=generator, device=inp.device)
+
+        if flip_p is None:
+            flip_p = torch.rand((), generator=generator, device=inp.device)
+        w_flip = flip_p <= 0.5
+        inp_f = torch.where(w_flip, inp.flip(2), inp.flip(1))
+        if self.fold_tta:
+            if eps is None:
+                eps = normal(2 * b)
+            net_out2, hm_logits2 = self.model(torch.cat([inp, inp_f]), False,
+                                              eps)
+            net_out, hm_logits = net_out2[:b], hm_logits2[:b]
+            hm_logits_f = hm_logits2[b:]
+        else:
+            if eps is None:
+                eps = normal(b)
+            net_out, hm_logits = self.model(inp, False, eps)
+            if eps2 is None:
+                eps2 = normal(b)
+            # BatchNorm updates again, from the first forward's statistics.
+            _, hm_logits_f = self.model(inp_f, False, eps2)
+        hm_logits_f = torch.where(w_flip, hm_logits_f.flip(2),
+                                  hm_logits_f.flip(1))
+        hm_p = losses.clamped_sigmoid(hm_logits)
+        hm_p_f = losses.clamped_sigmoid(hm_logits_f)
+        pred_loss = losses.pu_loss(hm_p, batch["target"], tau, slack=4.0)
+        consis_loss = torch.mean((hm_p - hm_p_f) ** 2)
+
+        outputs = self._nll_outputs(inp, net_out, batch)
+        final_loss = (alpha * outputs[PipelineOutput.DENOISE_LOSS]
+                      + (1 - alpha) * pred_loss + 0.1 * consis_loss)
+        outputs.update({
+            PipelineOutput.LOSS: final_loss,
+            PipelineOutput.DETECT_LOSS: pred_loss,
+            PipelineOutput.AUG_LOSS: consis_loss,
+            PipelineOutput.DETECT: hm_p,
+        })
+        return torch.mean(final_loss), outputs
+
+    def _nll_outputs(self, inp, net_out, batch) -> Dict:
+        """The ssdn NLL/PME part of the joint pipeline (one channel)."""
         c = self.in_channels
         if c != 1:
             raise NotImplementedError(
@@ -229,15 +348,11 @@ class Denoiser:
             known_noise=self.noise_value == NoiseValue.KNOWN,
         )
         loss_out = loss_map.reshape(loss_map.shape[0], -1).mean(1, keepdim=True)
-        zero = torch.zeros((), device=inp.device)
         return {
             PipelineOutput.IMG_MU: mu_x,
             PipelineOutput.IMG_DENOISED: pme_out,
             PipelineOutput.LOSS: loss_out,
-            PipelineOutput.DETECT_LOSS: zero,
             PipelineOutput.DENOISE_LOSS: loss_out,
-            PipelineOutput.AUG_LOSS: zero,
             PipelineOutput.NOISE_STD_DEV: noise_std_out,
             PipelineOutput.MODEL_STD_DEV: net_std,
-            PipelineOutput.DETECT: hm_p,
         }

@@ -1,14 +1,16 @@
-"""Standalone evaluation: load a checkpoint, dense-infer, export picks.
+"""Dense evaluation: the pass shared by the trainer's validation and the
+standalone evaluator, and the evaluator itself.
 
-The PyTorch port of `spr_pick_tpu/eval.py` (`DenoiserEvaluator`) with the
-parts of `spr_pick_tpu/train.py` that evaluation uses: the test data
+The PyTorch port of `spr_pick_tpu/eval.py` (`DenoiserEvaluator`) and of
+the parts of `spr_pick_tpu/train.py` that evaluation uses: the test data
 (`:376-441`), the dense eval pass with same-shape groups, batched NMS and
 contamination seeding (`_evaluate`, `:887-1116`, without the one-group
 export deferral), halo tiling for giant
 micrographs with the weight-keyed halo calibration (`:1118-1231`), the
 artifact export on a thread pool (`:849-885`, `:1245-1360`) and the run-dir
 naming (`:1609-1655`).  The JAX evaluator inherits all of it from the
-trainer; the port has no trainer yet, so the evaluator holds it itself.
+trainer; here it is one base, `EvaluatorBase`, of both `DenoiserEvaluator`
+and the trainer (`train.py`).
 
 Artifacts go to `<runs_dir>/NNNNN-eval-<config_name>/eval_imgs/` as
 ``{name}_{desc}.png`` and ``{name}_scores.txt`` (the reference's TSV schema:
@@ -35,7 +37,8 @@ from spr_pick_tpu_torch.params import (ConfigValue, DatasetType, Pipeline,
 from spr_pick_tpu_torch.steps import eval_step
 from spr_pick_tpu_torch.utils import checkpoint as ckpt
 from spr_pick_tpu_torch.utils.device import resolve_device
-from spr_pick_tpu_torch.utils.image_io import (quantize_u8_device,
+from spr_pick_tpu_torch.utils.image_io import (ScalarWriter,
+                                               quantize_u8_device,
                                                save_array_image, save_u8_image)
 from spr_pick_tpu_torch.utils.logging_helper import setup as setup_logging
 from spr_pick_tpu_torch.utils.metrics import (Metric, MetricDict,
@@ -46,9 +49,14 @@ logger = logging.getLogger("eval")
 HALO_CANDIDATES = (32, 64, 96, 128, 160, 224, 320)
 
 
-class DenoiserEvaluator:
-    """Owns a Denoiser loaded from a `.training` or `.wt` checkpoint, its
-    test data, and the eval run dir (created on `evaluate`).
+class EvaluatorBase:
+    """The dense evaluation pass over a test set, its artifacts and the run
+    dir, on ``self.denoiser``.
+
+    A subclass sets ``cfg``, ``mode``, ``denoiser``, the eval noise stream
+    ``_generator`` and ``eval_history``, and provides ``iteration`` (for
+    artifact names and the run name) and ``step`` (for the weight
+    fingerprint).  Run dirs are `<runs_dir>/NNNNN-<RUN_KIND>-<config_name>`.
 
     Micrographs whose padded edge exceeds ``tile_eval_threshold`` px take
     halo tiling: ``tile_eval_size`` px tiles with a ``tile_eval_halo`` px
@@ -56,28 +64,14 @@ class DenoiserEvaluator:
     forward.
     """
 
-    def __init__(self, state_path: str, runs_dir: str = cfg_mod.DEFAULT_RUN_DIR,
-                 mode: str = "joint", device=None):
+    RUN_KIND = "eval"
+
+    def __init__(self, runs_dir: str, run_dir: Optional[str] = None,
+                 device=None):
         self.device = resolve_device(device)
-        if not os.path.exists(state_path):
-            raise FileNotFoundError(f"Checkpoint does not exist: {state_path}")
-        state = ckpt.load(state_path)
-        self.cfg = state["cfg"]
-        self.mode = state.get("mode") or mode
-        self.denoiser = Denoiser(self.cfg, mode=self.mode, device=self.device)
-        self.denoiser.load_variables(state["trainable"], state["static"])
-        training = "training" in state.get("format", "") or "opt_state" in state
-        self.iteration = int(state["iteration"]) if training else 0
-        # The optimizer step, for the weight fingerprint (train.py:1461).
-        self.step = self.iteration // max(
-            self.cfg[ConfigValue.TRAIN_MINIBATCH_SIZE], 1)
-        # One noise stream for the evaluator's life: every forward (a group,
-        # or a tile chunk) draws fresh sample noise from it.
-        self._generator = torch.Generator(device=self.device).manual_seed(
-            int(self.cfg.get(ConfigValue.SEED, 0)))
         self.runs_dir = runs_dir
-        self._run_dir: Optional[str] = None
-        self.eval_history = MetricDict()
+        self._run_dir = run_dir
+        self._generator: Optional[torch.Generator] = None
         self.testset = None
         self.test_sampler = None
         # Halo tiling (train.py:149-165).  tile + 2 * halo stays a multiple
@@ -90,6 +84,7 @@ class DenoiserEvaluator:
         self._auto_halo = None
         self._export_pool: Optional[ThreadPoolExecutor] = None
         self._pending_exports = []
+        self._writer: Optional[ScalarWriter] = None
 
     # ------------------------------------------------------------------
     # Test data
@@ -150,31 +145,6 @@ class DenoiserEvaluator:
     # ------------------------------------------------------------------
     # Evaluation
     # ------------------------------------------------------------------
-
-    def evaluate(self):
-        """Parity: eval.py:46-61."""
-        if self.testset is None:
-            if not self.cfg.get(ConfigValue.TEST_DATA_PATH):
-                raise ValueError("Test dataset not set")
-            self.testset, self.test_sampler = self.test_data()
-        os.makedirs(self.run_dir_path, exist_ok=True)
-        setup_logging(self.run_dir_path, "log.txt")
-        logger.info(separator())
-        logger.info("EVALUATING...")
-        self.reset_metrics()
-        self._evaluate(output_callback=self.eval_output_callback(),
-                       picks_for_all=True)
-        logger.info("EVALUATION RESULT: %s", self.eval_state_str())
-        logger.info(separator())
-
-    def eval_output_callback(self):
-        def callback(idx: int, outputs: Dict, item: Dict):
-            self.save_image_outputs(
-                outputs, item, os.path.join(self.run_dir_path, "eval_imgs"),
-                "{name}_{desc}.png", "{name}_{desc}.txt",
-            )
-
-        return callback
 
     def _forward(self, inp: torch.Tensor, generator: torch.Generator):
         return eval_step(self.denoiser, {"inp": inp}, generator=generator)
@@ -482,12 +452,6 @@ class DenoiserEvaluator:
     # Metrics, run dir
     # ------------------------------------------------------------------
 
-    def reset_metrics(self):
-        self.eval_history["n"] = 0
-        for metric in self.eval_history.values():
-            if isinstance(metric, Metric):
-                metric.reset()
-
     def eval_state_str(self, prefix: str = "EVAL") -> str:
         parts = [
             "{}={:8.2f}".format(key, float(np.mean(m.accumulated())))
@@ -497,14 +461,24 @@ class DenoiserEvaluator:
         return "{} | ".format(prefix) + ", ".join(parts)
 
     @property
+    def writer(self) -> ScalarWriter:
+        """The run dir's tfevents/JSONL scalar writer; a resumed run purges
+        the scalars it logs again (train.py:1599-1606)."""
+        os.makedirs(self.run_dir_path, exist_ok=True)
+        if self._writer is None:
+            self._writer = ScalarWriter(self.run_dir_path,
+                                        purge_step=self.iteration + 1)
+        return self._writer
+
+    @property
     def run_dir_path(self) -> str:
         return os.path.join(self.runs_dir, self.run_dir)
 
     @property
     def run_dir(self) -> str:
         if self._run_dir is None:
-            self._run_dir = "{:05d}-eval-{}".format(self.next_run_id(),
-                                                    self.config_name())
+            self._run_dir = "{:05d}-{}-{}".format(
+                self.next_run_id(), self.RUN_KIND, self.config_name())
         return self._run_dir
 
     def next_run_id(self) -> int:
@@ -535,3 +509,60 @@ class DenoiserEvaluator:
                 lst = [self.cfg[key]] + lst
         lst += [str(self.cfg[ConfigValue.ALPHA]), str(self.cfg[ConfigValue.TAU])]
         return "-".join(lst + [self.mode])
+
+
+class DenoiserEvaluator(EvaluatorBase):
+    """Owns a Denoiser loaded from a `.training` or `.wt` checkpoint, its
+    test data, and the eval run dir (created on `evaluate`)."""
+
+    def __init__(self, state_path: str, runs_dir: str = cfg_mod.DEFAULT_RUN_DIR,
+                 mode: str = "joint", device=None):
+        super().__init__(runs_dir, device=device)
+        if not os.path.exists(state_path):
+            raise FileNotFoundError(f"Checkpoint does not exist: {state_path}")
+        state = ckpt.load(state_path)
+        self.cfg = state["cfg"]
+        self.mode = state.get("mode") or mode
+        self.denoiser = Denoiser(self.cfg, mode=self.mode, device=self.device)
+        self.denoiser.load_variables(state["trainable"], state["static"])
+        training = "training" in state.get("format", "") or "opt_state" in state
+        self.iteration = int(state["iteration"]) if training else 0
+        # The optimizer step, for the weight fingerprint (train.py:1461).
+        self.step = self.iteration // max(
+            self.cfg[ConfigValue.TRAIN_MINIBATCH_SIZE], 1)
+        # One noise stream for the evaluator's life: every forward (a group,
+        # or a tile chunk) draws fresh sample noise from it.
+        self._generator = torch.Generator(device=self.device).manual_seed(
+            int(self.cfg.get(ConfigValue.SEED, 0)))
+        self.eval_history = MetricDict()
+
+    def evaluate(self):
+        """Parity: eval.py:46-61."""
+        if self.testset is None:
+            if not self.cfg.get(ConfigValue.TEST_DATA_PATH):
+                raise ValueError("Test dataset not set")
+            self.testset, self.test_sampler = self.test_data()
+        _ = self.writer
+        setup_logging(self.run_dir_path, "log.txt")
+        logger.info(separator())
+        logger.info("EVALUATING...")
+        self.reset_metrics()
+        self._evaluate(output_callback=self.eval_output_callback(),
+                       picks_for_all=True)
+        logger.info("EVALUATION RESULT: %s", self.eval_state_str())
+        logger.info(separator())
+
+    def eval_output_callback(self):
+        def callback(idx: int, outputs: Dict, item: Dict):
+            self.save_image_outputs(
+                outputs, item, os.path.join(self.run_dir_path, "eval_imgs"),
+                "{name}_{desc}.png", "{name}_{desc}.txt",
+            )
+
+        return callback
+
+    def reset_metrics(self):
+        self.eval_history["n"] = 0
+        for metric in self.eval_history.values():
+            if isinstance(metric, Metric):
+                metric.reset()

@@ -1,13 +1,21 @@
-"""The evaluation terms of the losses: clamped sigmoid, ssdn NLL/PME and
-the noise-estimate remap.
+"""Loss functions: clamped sigmoid, ssdn NLL/PME, the noise-estimate
+remap, the PU losses, focal losses and the JS divergence.
 
-PyTorch port of `spr_pick_tpu/losses.py:18-55,100-103` (parity:
-`spr_pick/denoiser_v2.py:32-34,399-402,448-462`).  The PU, focal and
-full-covariance losses belong to the training slice.
+PyTorch port of `spr_pick_tpu/losses.py:18-55,100-321` (parity:
+`spr_pick/denoiser_v2.py:32-34,399-402,448-462` and
+`spr_pick/utils/losses.py`).  The reference's dynamic ``N = #unlabeled`` in
+the PU generalised-expectation penalty is handled, as in the JAX package,
+by masking over a static ``0..B`` count vector, and
+``scipy.stats.binom.logpmf`` is re-derived from ``lgamma``.  Masked
+branches go through `torch.where`, whose backward sends a zero gradient to
+the branch it did not select, so a masked ``-inf`` never reaches a
+gradient.  The mse terms and the 3-channel ``full_cov_nll_pme`` belong to
+the denoise-only slice.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -53,3 +61,199 @@ def softplus_noise_remap(noise_est: torch.Tensor) -> torch.Tensor:
     """softplus(x - 4) + 1e-3 — keeps the noise estimate positive, starting
     near zero.  Parity: denoiser_v2.py:399-402."""
     return F.softplus(noise_est - 4.0) + 1e-3
+
+
+# ---------------------------------------------------------------------------
+# Positive-unlabeled loss with generalised-expectation binomial penalty
+# ---------------------------------------------------------------------------
+
+def binom_logpmf(k: torch.Tensor, n: torch.Tensor, p: float) -> torch.Tensor:
+    """log Binomial(k; n, p) via lgamma (scipy.stats.binom.logpmf at the
+    reference's losses.py:326)."""
+    k = k.float()
+    n = torch.as_tensor(n, dtype=torch.float32, device=k.device)
+    return (
+        torch.lgamma(n + 1.0)
+        - torch.lgamma(k + 1.0)
+        - torch.lgamma(torch.clamp(n - k, min=0.0) + 1.0)
+        + k * math.log(p)
+        + (n - k) * math.log1p(-p)
+    )
+
+
+def bce(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Elementwise binary cross entropy on probabilities (nn.BCELoss
+    semantics, soft targets allowed)."""
+    return -(target * torch.log(pred) + (1.0 - target) * torch.log(1.0 - pred))
+
+
+def _ge_penalty(q_mu, q_var, n, b: int, tau: float, entropy_penalty: float):
+    """-sum_k logBinom(k; n, tau) * softmax_k(-(q_mu - k)^2 / (2 q_var)) over
+    k = 0..b, entries k > n masked out of the softmax."""
+    k = torch.arange(0, b + 1, dtype=q_mu.dtype, device=q_mu.device)
+    valid = k <= n
+    logits = -0.5 * (q_mu - k) ** 2 / (q_var + 1e-7)
+    logits = torch.where(valid, logits, torch.full_like(logits, -math.inf))
+    q_discrete = torch.softmax(logits, dim=0)
+    log_binom = torch.where(valid, binom_logpmf(k, n, tau),
+                            torch.zeros_like(k))
+    ge = -torch.sum(log_binom * q_discrete)
+    if entropy_penalty > 0:
+        ge = ge + 0.5 * (torch.log(q_var) + math.log(2 * math.pi) + 1.0) \
+            * entropy_penalty
+    return ge
+
+
+def pu_loss(pred: torch.Tensor, target: torch.Tensor, tau: float,
+            slack: float = 4.0, entropy_penalty: float = 0.0) -> torch.Tensor:
+    """PU loss: BCE on labeled coords + slack * GE binomial penalty.
+
+    Parity: `spr_pick_tpu/losses.py:130-180` (the reference's `pu_loss`,
+    losses.py:303-341, with criteria=BCELoss and slack 4).
+
+      labeled  : y >= 0 -> BCE(pred, y), mean over labeled
+      unlabeled: y == -1 -> q_mu = sum p, q_var = sum p(1-p)
+                 q_discrete = softmax_k(-(q_mu - k)^2 / (2 q_var)), k = 0..N
+                 ge = -sum_k logBinom(k; N, tau) * q_discrete
+    """
+    pred = pred.reshape(-1)
+    target = target.reshape(-1)
+    b = pred.shape[0]
+
+    labeled = (target >= 0).to(pred.dtype)
+    n_labeled = torch.sum(labeled)
+    cls_elem = bce(pred, torch.clamp(target, 0.0, 1.0)) * labeled
+    classifier_loss = torch.where(
+        n_labeled > 0,
+        torch.sum(cls_elem) / torch.clamp(n_labeled, min=1.0),
+        torch.zeros_like(n_labeled),
+    )
+
+    unlabeled = (target == -1).to(pred.dtype)
+    p_hat = pred * unlabeled
+    q_mu = torch.sum(p_hat)
+    q_var = torch.sum(p_hat * (1.0 - p_hat))
+    ge_penalty = _ge_penalty(q_mu, q_var, torch.sum(unlabeled), b, tau,
+                             entropy_penalty)
+    return classifier_loss + slack * ge_penalty
+
+
+def modified_pu_loss(pred: torch.Tensor, target: torch.Tensor, tau: float,
+                     slack: float = 1.0,
+                     entropy_penalty: float = 0.0) -> torch.Tensor:
+    """Per-patch GE variant: focal classifier on patches containing positives
+    + binomial GE over patch-mean scores of all-unlabeled patches.
+
+    Parity: `spr_pick_tpu/losses.py:183-226` (reference losses.py:252-300);
+    ``pred``/``target`` are (B, H, W, 1) maps.
+    """
+    b = pred.shape[0]
+    t_flat = target.reshape(b, -1)
+    p_flat = pred.reshape(b, -1)
+    has_pos = (torch.sum(t_flat, dim=1) > 0).to(pred.dtype)
+
+    item_mask = has_pos[:, None]
+    cls = _focal_elements(p_flat, t_flat)
+    pos_inds = (t_flat == 1).to(pred.dtype) * item_mask
+    num_pos = torch.sum(pos_inds)
+    cls_sum = torch.sum(cls * item_mask)
+    classifier_loss = torch.where(
+        num_pos > 0, cls_sum / torch.clamp(num_pos, min=1.0), cls_sum)
+
+    un_mask = 1.0 - has_pos
+    n = torch.sum(un_mask)
+    p_mean = torch.mean(p_flat, dim=1) * un_mask
+    q_mu = torch.sum(p_mean)
+    q_var = torch.sum(p_mean * (1.0 - p_mean) * un_mask)
+    ge = _ge_penalty(q_mu, q_var, n, b, tau, entropy_penalty)
+    ge = ge / torch.clamp(n, min=1.0)
+    return classifier_loss + slack * ge
+
+
+# ---------------------------------------------------------------------------
+# Focal losses (CornerNet style)
+# ---------------------------------------------------------------------------
+
+def _focal_elements(pred, gt):
+    """Summed CornerNet focal elements (negated, pre-normalisation)."""
+    pos_inds = (gt == 1).to(pred.dtype)
+    neg_inds = (gt < 1).to(pred.dtype)
+    neg_weights = (1.0 - gt) ** 4
+    pos_loss = torch.log(pred) * (1.0 - pred) ** 2 * pos_inds
+    neg_loss = torch.log(1.0 - pred) * pred ** 2 * neg_weights * neg_inds
+    return -(pos_loss + neg_loss)
+
+
+def focal_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    """CornerNet modified focal loss.  Parity: `spr_pick_tpu/losses.py:243-251`
+    (reference `_neg_loss`, losses.py:20-60)."""
+    pos_inds = (gt == 1).to(pred.dtype)
+    neg_inds = (gt < 1).to(pred.dtype)
+    neg_weights = (1.0 - gt) ** 4
+    pos_loss = torch.sum(torch.log(pred) * (1.0 - pred) ** 2 * pos_inds)
+    neg_loss = torch.sum(
+        torch.log(1.0 - pred) * pred ** 2 * neg_weights * neg_inds)
+    num_pos = torch.sum(pos_inds)
+    return torch.where(num_pos == 0, -neg_loss,
+                       -(pos_loss + neg_loss) / torch.clamp(num_pos, min=1.0))
+
+
+def pu_focal_loss(pred: torch.Tensor, gt: torch.Tensor, tau: float,
+                  beta: float = 0.0, gamma: float = 1.0) -> torch.Tensor:
+    """Focal-style PU risk with soft labels and beta clip.
+
+    Parity: `spr_pick_tpu/losses.py:254-290` (reference `_pu_neg_loss`,
+    losses.py:126-184).
+    """
+    true_pos = (gt > 0.5).to(pred.dtype)
+    other = (gt < 1).to(pred.dtype)
+    soft_pos = (true_pos == other).to(pred.dtype)
+    unlabeled = (gt == -1).to(pred.dtype)
+
+    num_pos = torch.clamp(torch.sum(true_pos), min=1.0)
+    num_soft = torch.clamp(torch.sum(soft_pos), min=1.0)
+    num_un = torch.clamp(torch.sum(unlabeled), min=1.0)
+
+    soft_pow_w = (1.0 - gt) ** 4
+    soft_pow_neg_w = gt ** 4
+
+    pos_loss = torch.sum(torch.log(pred) * (1.0 - pred) ** 2 * true_pos)
+    soft_pos_loss = torch.sum(
+        torch.log(1.0 - pred) * pred ** 2 * soft_pow_w * soft_pos)
+    pos_risk = (-pos_loss / num_pos - soft_pos_loss / num_soft) * tau
+
+    neg_pos_loss = torch.sum(torch.log(1.0 - pred) * pred ** 2 * true_pos)
+    neg_soft = torch.sum(
+        torch.log(pred) * (1.0 - pred) ** 2 * soft_pow_neg_w * soft_pos)
+    neg_pos_risk = -neg_pos_loss / num_pos - neg_soft / num_soft
+
+    unlabeled_loss = -torch.sum(pred ** 2 * torch.log(1.0 - pred) * unlabeled)
+    neg_risk_total = -tau * neg_pos_risk + unlabeled_loss / num_un
+    return torch.where(neg_risk_total < -beta, pos_risk,
+                       pos_risk + neg_risk_total)
+
+
+# ---------------------------------------------------------------------------
+# JS divergence over heatmaps
+# ---------------------------------------------------------------------------
+
+def _kl_div_2d(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    # D_KL(P || Q), inputs BHWC treated as (B*C, H*W) distributions.
+    b, c = p.shape[0], p.shape[-1]
+    pf = torch.movedim(p, -1, 1).reshape(b * c, -1)
+    qf = torch.movedim(q, -1, 1).reshape(b * c, -1)
+    kl = pf * (torch.log(pf) - torch.log(qf))
+    return torch.sum(kl, dim=-1).reshape(b, c)
+
+
+def js_div_loss_2d(inp: torch.Tensor, target: torch.Tensor,
+                   reduction: str = "mean") -> torch.Tensor:
+    """Jensen-Shannon divergence between heatmaps.  Parity:
+    `spr_pick_tpu/losses.py:307-317` (the reference computes
+    JSD(target||input), losses.py:200-248)."""
+    p, q = target, inp
+    m = 0.5 * (p + q)
+    js = 0.5 * _kl_div_2d(p, m) + 0.5 * _kl_div_2d(q, m)
+    if reduction == "none":
+        return js
+    return torch.mean(js) if reduction == "mean" else torch.sum(js)

@@ -9,9 +9,10 @@ construction; ``forward(x, dense=True)`` runs the same parameters as the
 dilated stride-1 network (the reference's ``fill()``): the input is
 zero-padded by ``width // 2`` and every conv stays VALID.
 
-BatchNorm always uses its running statistics (eval mode: the port has no
-training yet), computed in float32 and cast back to the compute dtype.
-All tensors are NCHW.
+BatchNorm follows the module's ``train()``/``eval()`` mode (`batch_norm`):
+the batch's statistics in train mode with flax's running update, the
+running statistics in eval mode; always computed in float32 and cast back
+to the compute dtype.  All tensors are NCHW.
 """
 
 from __future__ import annotations
@@ -25,13 +26,36 @@ from torch import nn
 from spr_pick_tpu_torch.models.blindspot import conv2d, torch_conv_init_
 
 BN_EPS = 1e-5  # torch BatchNorm2d default, flax epsilon=1e-5
+BN_DECAY = 0.9  # flax momentum (torch momentum 0.1)
 
 
 def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d,
                dtype: Optional[torch.dtype]) -> torch.Tensor:
-    """Inference BatchNorm in float32, output in the compute dtype."""
-    y = F.batch_norm(x.float(), bn.running_mean, bn.running_var, bn.weight,
-                     bn.bias, training=False, eps=BN_EPS)
+    """BatchNorm in float32, output in the compute dtype.
+
+    In eval mode it normalises with the running statistics.  In train mode
+    it is flax's ``nn.BatchNorm(use_running_average=False, momentum=0.9)``
+    (flax `normalization.py:_compute_stats`, `_normalize`): the batch mean
+    and the biased variance E[x^2] - E[x]^2 (clipped at 0) over N, H, W,
+    gradients through both, and the running update
+    ``ra = 0.9 * ra + 0.1 * batch`` with that biased variance.
+    ``F.batch_norm(training=True)`` would update ``running_var`` with the
+    unbiased one, off by n / (n - 1): 16/15 at batch 16 on ResNet8's last
+    layer, whose output is 1x1 a patch.
+    """
+    x = x.float()
+    if not bn.training:
+        y = F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                         bn.bias, training=False, eps=BN_EPS)
+        return y.to(dtype or torch.float32)
+    mean = x.mean(dim=(0, 2, 3))
+    var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+    with torch.no_grad():
+        bn.running_mean.copy_(BN_DECAY * bn.running_mean
+                              + (1 - BN_DECAY) * mean)
+        bn.running_var.copy_(BN_DECAY * bn.running_var + (1 - BN_DECAY) * var)
+    mul = torch.rsqrt(var + BN_EPS) * bn.weight
+    y = (x - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None, None]
     return y.to(dtype or torch.float32)
 
 

@@ -4,7 +4,8 @@ The PyTorch port's copy of `spr_pick_tpu/ops/heatmap.py` (parity:
 `spr_pick/utils/coordinates.py:6-154`): CornerNet min-overlap-0.7 radius,
 per-peak max-composition, background value -1.  The JAX package can hand
 `as_gaussian` to a C++ rasteriser built with g++; the port keeps the numpy
-loop, which that rasteriser equals.
+loop, which that rasteriser equals within 1e-6 (one float32 ulp of some
+values; tests/test_native.py, tests/test_torch_patch_pipeline.py).
 """
 
 from __future__ import annotations

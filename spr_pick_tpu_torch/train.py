@@ -1,0 +1,678 @@
+"""Training orchestration: run dirs, the loop, intervals, snapshots and
+validation.
+
+The PyTorch port of `spr_pick_tpu/train.py` (`DenoiserTrainer`, joint mode
+on TXT data, and `resume_run`; parity: `spr_pick/train.py`).  A step is
+`steps.train_step` on a batch from the data plane
+(`data/micrograph.py:DevicePatchPipeline`, or `HostPatchPipeline` past the
+device budget), with metrics kept on the device until a print, eval or
+snapshot boundary.  Intervals fire on crossings of their multiples, not
+exact hits (`interval_due`), so a batch that does not divide an interval
+still fires every boundary.  Validation is the dense evaluation pass of
+`eval.py:EvaluatorBase` with the modules in eval mode, its picks through
+K1; snapshots are `training_jt/model_{iter:08d}.training` in the JAX
+package's format, and a completed run writes `final-<config>.wt`.
+SIGTERM/SIGINT snapshot and stop at the next boundary, without a
+`final-*.wt`.
+
+Randomness: the sampler and the flips are numpy `RandomState`s, as in the
+JAX package, so they draw the same indices and flips.  The pipeline's sample
+noise and flip draw come from a `torch.Generator` derived from the JAX
+key's value (``PRNGKey(seed + 1)``); its state is saved in every
+`.training`, so a resumed run draws what the uninterrupted one would.
+Validation draws its noise from a generator seeded with the cfg seed at
+each pass.  The device is the GPU unless the caller passes another
+(`utils/device.py`).
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+import os
+import signal
+import threading
+from collections import defaultdict
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from spr_pick_tpu_torch import cfg as cfg_mod
+from spr_pick_tpu_torch import weights
+from spr_pick_tpu_torch.data.micrograph import (DevicePatchPipeline,
+                                                HostPatchPipeline,
+                                                MicrographDataset)
+from spr_pick_tpu_torch.data.sampler import StratifiedCoordinateSampler
+from spr_pick_tpu_torch.denoiser import Denoiser
+from spr_pick_tpu_torch.eval import EvaluatorBase
+from spr_pick_tpu_torch.params import (ConfigValue, DatasetType, HistoryValue,
+                                       PipelineOutput, StateValue)
+from spr_pick_tpu_torch.steps import TrainState, init_state, make_optimizer, \
+    train_step
+from spr_pick_tpu_torch.utils import checkpoint as ckpt
+from spr_pick_tpu_torch.utils.logging_helper import setup as setup_logging
+from spr_pick_tpu_torch.utils.metrics import (Metric, MetricDict, TrackedTime,
+                                              seconds_to_dhms, separator)
+from spr_pick_tpu_torch.utils.profiling import Trace
+from spr_pick_tpu_torch.utils.schedule import compute_ramped_lrate
+
+logger = logging.getLogger("train")
+
+DEFAULT_RUN_DIR = cfg_mod.DEFAULT_RUN_DIR
+
+
+def _device_data_budget() -> int:
+    """Device byte budget of the micrograph stack (4 GiB by default;
+    SPR_DEVICE_DATA_BUDGET overrides, in bytes).  train.py:76-85."""
+    return int(os.environ.get("SPR_DEVICE_DATA_BUDGET", 4 << 30))
+
+
+def interval_due(fired: Dict[str, int], kind: str, interval,
+                 iteration: int) -> bool:
+    """Whether ``iteration`` crossed a multiple of ``interval`` since the
+    last time ``kind`` fired (train.py:564-582); records the firing."""
+    if not interval or interval <= 0:
+        return False
+    if iteration // interval > fired[kind] // interval:
+        fired[kind] = iteration
+        return True
+    return False
+
+
+def _key_generator(key: np.ndarray, device) -> torch.Generator:
+    """The torch stream the port derives from a JAX uint32[2] key."""
+    seed = (int(key[0]) << 32) | int(key[1])
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+class DenoiserTrainer(EvaluatorBase):
+    """Owns a Denoiser, its TrainState, the data planes and the run dir."""
+
+    RUN_KIND = "train"
+
+    def __init__(self, cfg: Optional[Dict], mode: str = "joint",
+                 alpha: Optional[float] = None, tau: Optional[float] = None,
+                 runs_dir: str = DEFAULT_RUN_DIR, run_dir: Optional[str] = None,
+                 profile: bool = False, device=None):
+        super().__init__(runs_dir, run_dir=run_dir, device=device)
+        if mode != "joint":
+            raise NotImplementedError(
+                f"mode {mode!r}: denoise-only training is not ported yet "
+                "(ROADMAP.md §1 item 4)"
+            )
+        self.profile = profile
+        self.cfg = cfg
+        self.mode = mode
+        # cfg is the single source of truth for the loss weights: explicit
+        # arguments write through to it, omitted ones read it.
+        if self.cfg:
+            cfg_mod.infer(self.cfg)
+            if alpha is not None:
+                self.cfg[ConfigValue.ALPHA] = float(alpha)
+            if tau is not None:
+                self.cfg[ConfigValue.TAU] = float(tau)
+            self.alpha = float(self.cfg.get(ConfigValue.ALPHA, 0.8))
+            self.tau = float(self.cfg.get(ConfigValue.TAU, 0.01))
+        else:
+            # Shell trainer (resume): the checkpoint's cfg arrives in
+            # load_state_dict.
+            self.alpha = 0.8 if alpha is None else float(alpha)
+            self.tau = 0.01 if tau is None else float(tau)
+        self.state: Dict = {}
+        self.init_state()
+        self.denoiser: Optional[Denoiser] = None
+        self.train_state: Optional[TrainState] = None
+        self._rng_key: Optional[np.ndarray] = None
+        self._train_generator: Optional[torch.Generator] = None
+        self._pending_data_state = None
+        # Set by SIGTERM/SIGINT; checked at chunk boundaries in train().
+        self._stop_requested = False
+        self.trainset: Optional[MicrographDataset] = None
+        self.patch_pipeline = None
+        self.train_sampler = None
+
+    # ------------------------------------------------------------------
+    # State
+    # ------------------------------------------------------------------
+
+    def init_state(self):
+        self.state[StateValue.INITIALISED] = True
+        self.state[StateValue.ITERATION] = 0
+        self.state[StateValue.HISTORY] = {
+            HistoryValue.TRAIN: MetricDict(),
+            HistoryValue.EVAL: MetricDict(),
+            HistoryValue.TIMINGS: defaultdict(TrackedTime),
+        }
+        self.reset_metrics()
+
+    def _check_mesh(self):
+        n = self.cfg.get(ConfigValue.MESH_SHAPE)
+        if n is not None and n > 1:
+            raise NotImplementedError(
+                f"mesh {n}: multi-GPU training is not ported yet (ROADMAP.md "
+                "§1 item 6); the port trains on one device"
+            )
+
+    def new_target(self):
+        """Fresh Denoiser + TrainState (train.py:186-199)."""
+        self._check_mesh()
+        self.denoiser = Denoiser(self.cfg, mode=self.mode, device=self.device)
+        seed = int(self.cfg.get(ConfigValue.SEED, 0))
+        self.train_state = init_state(self.denoiser, seed=seed)
+        # The value of jax.random.PRNGKey(seed + 1).
+        self._rng_key = np.array([0, seed + 1], np.uint32)
+        self._train_generator = _key_generator(self._rng_key, self.device)
+        self.init_state()
+
+    @property
+    def iteration(self) -> int:
+        return self.state[StateValue.ITERATION]
+
+    @property
+    def step(self) -> int:
+        return 0 if self.train_state is None else self.train_state.step
+
+    @property
+    def eval_history(self) -> MetricDict:
+        return self.state[StateValue.HISTORY][HistoryValue.EVAL]
+
+    @property
+    def base_learning_rate(self) -> float:
+        return float(self.cfg.get(ConfigValue.LEARNING_RATE) or 1e-4)
+
+    @property
+    def learning_rate(self) -> float:
+        # Ramp-down and ramp-up swapped, as at the reference's call site
+        # (train.py:244-250).
+        return compute_ramped_lrate(
+            self.state[StateValue.ITERATION],
+            self.cfg[ConfigValue.ITERATIONS],
+            self.cfg[ConfigValue.LR_RAMPDOWN_FRACTION],
+            self.cfg[ConfigValue.LR_RAMPUP_FRACTION],
+            self.base_learning_rate,
+        )
+
+    # ------------------------------------------------------------------
+    # Data
+    # ------------------------------------------------------------------
+
+    def train_data(self):
+        """Training dataset, sampler and patch pipeline (train.py:279-327;
+        TXT manifests with coordinates)."""
+        cfg = self.cfg
+        if cfg[ConfigValue.TRAIN_DATASET_TYPE] != DatasetType.TXT:
+            raise NotImplementedError(
+                "joint training needs particle coordinates (TXT manifest); "
+                "folder/hdf5 datasets support denoise-only training, which "
+                "is not ported yet (ROADMAP.md §1 item 4)"
+            )
+        patch = cfg[ConfigValue.TRAIN_PATCH_SIZE]
+        dataset = MicrographDataset(
+            cfg[ConfigValue.TRAIN_DATA_PATH], cfg[ConfigValue.TRAIN_LABEL_PATH],
+            radius=3, crop=patch, gt_path=cfg[ConfigValue.TRAIN_GT_PATH],
+            bb=cfg[ConfigValue.BB],
+        )
+        sampler = StratifiedCoordinateSampler(
+            list(dataset.targets), balance=0.1,
+            size=cfg[ConfigValue.ITERATIONS]
+            * cfg[ConfigValue.TRAIN_MINIBATCH_SIZE],
+            random=np.random.RandomState(int(cfg.get(ConfigValue.SEED, 0))),
+        )
+        try:
+            pipeline = DevicePatchPipeline(
+                dataset, crop=patch, max_bytes=_device_data_budget(),
+                device=self.device)
+        except ValueError as exc:
+            logger.warning(
+                "device joint data plane unavailable (%s); falling back to "
+                "host batch prep - dataset capacity is now host-RAM-bound, "
+                "like the reference's DataLoader path", exc)
+            pipeline = HostPatchPipeline(dataset, crop=patch,
+                                         device=self.device)
+        return dataset, sampler, pipeline
+
+    def set_train_data(self, path: str):
+        self.cfg[ConfigValue.TRAIN_DATA_PATH] = path
+        self.cfg[ConfigValue.TRAIN_DATASET_TYPE] = None
+        cfg_mod.infer_datasets(self.cfg)
+
+    def set_train_label(self, path: str):
+        self.cfg[ConfigValue.TRAIN_LABEL_PATH] = path
+
+    def set_train_gt_data(self, path: str):
+        self.cfg[ConfigValue.TRAIN_GT_PATH] = path
+
+    # ------------------------------------------------------------------
+    # Training loop
+    # ------------------------------------------------------------------
+
+    def _install_stop_handlers(self):
+        """SIGTERM/SIGINT -> snapshot and stop at the next boundary
+        (train.py:447-487); a second SIGINT raises KeyboardInterrupt.
+        Returns restore(); a no-op off the main thread."""
+        if threading.current_thread() is not threading.main_thread():
+            return lambda: None
+
+        def handler(signum, frame):
+            if self._stop_requested and signum == signal.SIGINT:
+                raise KeyboardInterrupt
+            self._stop_requested = True
+            logger.warning(
+                "received %s - will snapshot and stop at the next window "
+                "boundary (repeat Ctrl-C to kill)", signal.Signals(signum).name,
+            )
+
+        prev = {s: signal.signal(s, handler)
+                for s in (signal.SIGTERM, signal.SIGINT)}
+
+        def restore():
+            for s, h in prev.items():
+                signal.signal(s, h)
+
+        return restore
+
+    def train(self):
+        if self.denoiser is None:
+            self.new_target()
+        _ = self.writer
+        setup_logging(self.run_dir_path, "log.txt")
+        logger.info(separator())
+        logger.info("Loading Training Dataset...")
+        self.trainset, self.train_sampler, self.patch_pipeline = \
+            self.train_data()
+        if self._pending_data_state:
+            self.load_data_state_dict(self._pending_data_state)
+            self._pending_data_state = None
+            logger.info("restored data-plane state (sampler + augment RNGs)")
+        logger.info("Loaded Training Dataset.")
+        if self.cfg[ConfigValue.TEST_DATA_PATH]:
+            logger.info("Loading Validation Dataset...")
+            self.testset, self.test_sampler = self.test_data()
+            logger.info("Loaded Validation Dataset.")
+
+        self._stop_requested = False
+        restore_handlers = self._install_stop_handlers()
+        try:
+            logger.info(separator())
+            logger.info("TRAINING STARTED")
+            logger.info(separator())
+            history = self.state[StateValue.HISTORY]
+            batch_size = self.cfg[ConfigValue.TRAIN_MINIBATCH_SIZE]
+            # Metrics stay on the device until a boundary flushes them.
+            pending_metrics = []
+            capture = None
+            if self.profile:
+                capture = Trace(os.path.join(self.run_dir_path, "profile"))
+            fired = dict.fromkeys(("eval", "print", "snapshot"),
+                                  self.state[StateValue.ITERATION] - 1)
+            self.denoiser.train()
+            while True:
+                iteration = self.state[StateValue.ITERATION]
+                if self._stop_requested:
+                    # No final-*.wt: that file means the run completed.
+                    self._flush_metrics(pending_metrics, batch_size)
+                    if capture is not None:
+                        capture.stop()
+                    self.snapshot()
+                    logger.info(separator())
+                    logger.info(
+                        "TRAINING STOPPED at iteration %d (signal) - resume "
+                        "with `train resume %s`", iteration, self.run_dir_path,
+                    )
+                    logger.info(separator())
+                    return
+                if self.testset is not None and interval_due(
+                        fired, "eval", self.cfg[ConfigValue.EVAL_INTERVAL],
+                        iteration):
+                    self._flush_metrics(pending_metrics, batch_size)
+                    self.validate()
+                if interval_due(fired, "print",
+                                self.cfg[ConfigValue.PRINT_INTERVAL],
+                                iteration):
+                    self._flush_metrics(pending_metrics, batch_size)
+                    if capture is not None and iteration > 0:
+                        logger.info("profiler trace written to %s",
+                                    capture.stop())
+                        capture = None
+                    history[HistoryValue.TIMINGS]["total"].update()
+                    last_print = history[HistoryValue.TIMINGS]["last_print"]
+                    last_print.update()
+                    samples = (history[HistoryValue.EVAL]["n"]
+                               + history[HistoryValue.TRAIN]["n"])
+                    self.update_eta(samples, last_print.total)
+                    logger.info(self.state_str(eval_prefix="VALID"))
+                    self.write_metrics(eval_prefix="valid")
+                    last_print.total = 0
+                    self.reset_metrics()
+                if interval_due(fired, "snapshot",
+                                self.cfg[ConfigValue.SNAPSHOT_INTERVAL],
+                                iteration):
+                    self._flush_metrics(pending_metrics, batch_size)
+                    self.snapshot()
+                if iteration >= self.cfg[ConfigValue.ITERATIONS]:
+                    break
+                for _ in range(self._chunk_steps(iteration, batch_size)):
+                    batch = self.patch_pipeline.batch(
+                        self.train_sampler.sample_batch(batch_size))
+                    pending_metrics.append(train_step(
+                        self.train_state, batch, self.learning_rate,
+                        self.alpha, self.tau, generator=self._train_generator,
+                    ))
+                    self.state[StateValue.ITERATION] += batch_size
+
+            self._flush_metrics(pending_metrics, batch_size)
+            if capture is not None:
+                capture.stop()
+            logger.info(separator())
+            logger.info("TRAINING FINISHED")
+            logger.info(separator())
+            self.snapshot()
+            self.snapshot(output_name="final-{}.wt".format(self.config_name()),
+                          subdir="", model_only=True)
+        finally:
+            restore_handlers()
+
+    def _chunk_steps(self, iteration: int, batch_size: int) -> int:
+        """Steps until the next eval/print/snapshot/end boundary
+        (train.py:755-767): the loop checks intervals and the stop flag
+        between chunks."""
+        intervals = [self.cfg[ConfigValue.PRINT_INTERVAL],
+                     self.cfg[ConfigValue.SNAPSHOT_INTERVAL]]
+        if self.testset is not None:
+            intervals.append(self.cfg[ConfigValue.EVAL_INTERVAL])
+        boundary = min((((iteration // iv) + 1) * iv
+                        for iv in intervals if iv and iv > 0),
+                       default=self.cfg[ConfigValue.ITERATIONS])
+        boundary = min(boundary, self.cfg[ConfigValue.ITERATIONS])
+        return max((boundary - iteration) // batch_size, 1)
+
+    def _flush_metrics(self, pending, batch_size: int):
+        """Copy the buffered device metrics to the host history
+        (train.py:812-837)."""
+
+        def as_batched(value):
+            arr = value.float().cpu().numpy()
+            return arr.reshape(1) if arr.ndim == 0 else arr
+
+        train_history = self.state[StateValue.HISTORY][HistoryValue.TRAIN]
+        for metrics in pending:
+            train_history["n"] += batch_size
+            for key in ("loss", "denoise_loss", "det_loss", "aug_loss"):
+                if key in metrics:
+                    train_history[key] += as_batched(metrics[key])
+            for key in (PipelineOutput.NOISE_STD_DEV.value,
+                        PipelineOutput.MODEL_STD_DEV.value):
+                if key in metrics:
+                    train_history[key] += as_batched(metrics[key]) * 255
+        pending.clear()
+
+    # ------------------------------------------------------------------
+    # Validation
+    # ------------------------------------------------------------------
+
+    def validate(self):
+        """The dense evaluation pass over the validation set, the modules in
+        eval mode, exporting the first micrograph's artifacts
+        (train.py:603-608, 1233-1243)."""
+        self.denoiser.train(False)
+        self._generator = torch.Generator(device=self.device).manual_seed(
+            int(self.cfg.get(ConfigValue.SEED, 0)))
+        try:
+            self._evaluate(output_callback=self.validation_output_callback(0))
+        finally:
+            self.denoiser.train(True)
+
+    def validation_output_callback(self, output_index: int):
+        def callback(idx: int, outputs: Dict, item: Dict):
+            if idx == output_index:
+                self.save_image_outputs(
+                    outputs, item,
+                    os.path.join(self.run_dir_path, "val_imgs_" + self.mode),
+                    "{name}_{iter:08}_{desc}.png",
+                    "{name}_{iter:08}_{desc}.txt",
+                )
+
+        return callback
+
+    # ------------------------------------------------------------------
+    # Snapshots / resume
+    # ------------------------------------------------------------------
+
+    def opt_state(self) -> ckpt.OptState:
+        """The optimizer state as optax's ScaleByAdamState(count, mu, nu) of
+        numpy trees in the flax layout."""
+        opt = self.train_state.opt
+        names = self.denoiser.named_trainable()
+        return ckpt.ScaleByAdamState(
+            np.asarray(opt.count, np.int32),
+            weights.named_to_flax((g, k, t) for (g, k, _), t
+                                  in zip(names, opt.mu)),
+            weights.named_to_flax((g, k, t) for (g, k, _), t
+                                  in zip(names, opt.nu)),
+        )
+
+    def _load_opt_state(self, opt_state) -> None:
+        """Load a ScaleByAdamState (JAX- or port-written) into the
+        optimizer: ``count`` is every parameter's Adam step."""
+        name = getattr(opt_state, "optax_name", type(opt_state).__name__)
+        if name != "ScaleByAdamState":
+            raise ckpt.CheckpointError(
+                f"optimizer state {name}: only optax.scale_by_adam's "
+                "ScaleByAdamState is loaded")
+        count, mu, nu = opt_state
+        opt = self.train_state.opt
+        names = self.denoiser.named_trainable()
+        with torch.no_grad():
+            for dst, tree in ((opt.mu, mu), (opt.nu, nu)):
+                for t, src in zip(dst, weights.flax_to_named(tree, names)):
+                    t.copy_(src)
+        opt.count = int(np.asarray(count))
+
+    def snapshot(self, output_name: str = None, subdir: str = None,
+                 model_only: bool = False):
+        """Parity: train.py:1366-1399."""
+        if subdir is None:
+            subdir = "model_jt" if model_only else "training_jt"
+        output_dir = os.path.join(self.run_dir_path, subdir)
+        os.makedirs(output_dir, exist_ok=True)
+        iteration = self.state[StateValue.ITERATION]
+        trainable, static = self.denoiser.variables()
+        if model_only:
+            output_name = output_name or "model_{:08d}.wt".format(iteration)
+            ckpt.save_weights(os.path.join(output_dir, output_name),
+                              trainable, static, self.cfg, self.mode)
+            return
+        output_name = output_name or "model_{:08d}.training".format(iteration)
+        generator = {"device": self._train_generator.device.type,
+                     "state": self._train_generator.get_state().numpy()}
+        ckpt.save_training(
+            os.path.join(output_dir, output_name), trainable, static,
+            self.opt_state(), self.cfg, self.mode, iteration,
+            rng_key=self._rng_key,
+            extra={"data_state": self.data_state_dict(),
+                   "torch_generator": generator},
+        )
+
+    def data_state_dict(self):
+        """Sampler position + augment RNGs (train.py:1401-1419)."""
+        state = {}
+        if self.train_sampler is not None:
+            state["sampler"] = self.train_sampler.state_dict()
+        if self.patch_pipeline is not None:
+            state["pipeline"] = self.patch_pipeline.state_dict()
+        return state
+
+    def load_data_state_dict(self, state) -> None:
+        if not state:
+            return
+        if "sampler" in state and self.train_sampler is not None:
+            self.train_sampler.load_state_dict(state["sampler"])
+        if "pipeline" in state and self.patch_pipeline is not None:
+            self.patch_pipeline.load_state_dict(state["pipeline"])
+
+    def _load_engine(self, path_or_state) -> Dict:
+        """A checkpoint's cfg (with the loss weights it trained with) and
+        weights into a fresh Denoiser; returns the loaded state."""
+        state = path_or_state
+        if isinstance(state, str):
+            state = ckpt.load(state)
+        self.cfg = state["cfg"]
+        self.mode = state.get("mode", self.mode) or self.mode
+        self.alpha = float(self.cfg.get(ConfigValue.ALPHA, self.alpha))
+        self.tau = float(self.cfg.get(ConfigValue.TAU, self.tau))
+        self._check_mesh()
+        self.denoiser = Denoiser(self.cfg, mode=self.mode, device=self.device)
+        self.denoiser.load_variables(state["trainable"], state["static"])
+        return state
+
+    def load_state_dict(self, path_or_state):
+        """Load a `.training` (the port's or the JAX package's) and rebuild
+        the engine and state (train.py:1430-1479).  A JAX-written file has
+        no torch generator state: the generator is derived from its
+        ``rng_key``."""
+        state = self._load_engine(path_or_state)
+        batch = max(self.cfg[ConfigValue.TRAIN_MINIBATCH_SIZE], 1)
+        self.train_state = TrainState(step=state["iteration"] // batch,
+                                      denoiser=self.denoiser,
+                                      opt=make_optimizer(self.denoiser))
+        if state.get("opt_state") is not None:
+            self._load_opt_state(state["opt_state"])
+        self.state[StateValue.ITERATION] = state["iteration"]
+        key = state.get("rng_key")
+        self._rng_key = (np.zeros(2, np.uint32) if key is None
+                         else np.asarray(key, np.uint32))
+        self._train_generator = _key_generator(self._rng_key, self.device)
+        extra = state.get("extra") or {}
+        saved = extra.get("torch_generator")
+        if saved is not None:
+            if saved["device"] == self.device.type:
+                self._train_generator.set_state(
+                    torch.from_numpy(np.asarray(saved["state"])))
+            else:
+                logger.warning(
+                    "snapshot's generator state is for %s, this run is on "
+                    "%s: the sample noise is derived from rng_key instead",
+                    saved["device"], self.device.type)
+        self._pending_data_state = extra.get("data_state")
+
+    def load_weights(self, path_or_state):
+        """Load a `.wt` into a fresh engine and optimizer at step 0
+        (train.py:1481-1500)."""
+        state = self._load_engine(path_or_state)
+        self.train_state = TrainState(step=0, denoiser=self.denoiser,
+                                      opt=make_optimizer(self.denoiser))
+        self._rng_key = np.zeros(2, np.uint32)
+        self._train_generator = _key_generator(self._rng_key, self.device)
+
+    # ------------------------------------------------------------------
+    # Metrics / strings
+    # ------------------------------------------------------------------
+
+    def write_metrics(self, eval_prefix: str = "eval"):
+        it = self.state[StateValue.ITERATION]
+
+        def write_metric_dict(metric_dict, prefix):
+            for key, metric in metric_dict.items():
+                if isinstance(metric, Metric) and not metric.empty():
+                    self.writer.add_scalar(prefix + "/" + str(key),
+                                           metric.accumulated(), it)
+
+        write_metric_dict(self.state[StateValue.HISTORY][HistoryValue.TRAIN],
+                          "train")
+        self.writer.add_scalar("train/learning_rate", self.learning_rate, it)
+        write_metric_dict(self.eval_history, eval_prefix)
+
+    def state_str(self, eval_prefix: str = "EVAL") -> str:
+        state_str = self.train_state_str()
+        if self.eval_history["n"] > 0:
+            prefix = "{:10} {:>5}".format("", eval_prefix)
+            state_str = os.linesep.join([state_str,
+                                         self.eval_state_str(prefix)])
+        return state_str
+
+    def train_state_str(self) -> str:
+        history = self.state[StateValue.HISTORY]
+        eta = history[HistoryValue.TIMINGS].get("eta", None)
+        if isinstance(eta, (int, float)):
+            eta = "<1s" if eta < 1 else seconds_to_dhms(eta)
+        else:
+            eta = "???"
+        summary = "[{:08d}] {:>5} | ".format(self.state[StateValue.ITERATION],
+                                             "TRAIN")
+        parts = [
+            "{}={:8.2f}".format(key, float(np.mean(metric.accumulated())))
+            for key, metric in history[HistoryValue.TRAIN].items()
+            if isinstance(metric, Metric) and not metric.empty()
+        ]
+        summary += ", ".join(parts)
+        if parts:
+            summary += " | "
+        total = history[HistoryValue.TIMINGS]["total"]
+        return summary + "[{} ~ ETA: {}]".format(
+            seconds_to_dhms(total.total, trim=False), eta)
+
+    def reset_metrics(self, eval: bool = True, train: bool = True):
+        def reset(metric_dict):
+            metric_dict["n"] = 0
+            for metric in metric_dict.values():
+                if isinstance(metric, Metric):
+                    metric.reset()
+
+        if train:
+            reset(self.state[StateValue.HISTORY][HistoryValue.TRAIN])
+        if eval:
+            reset(self.state[StateValue.HISTORY][HistoryValue.EVAL])
+
+    def update_eta(self, samples: int, elapsed: float, smoothing_factor=0.95):
+        """Parity: train.py:1576-1593."""
+        timings = self.state[StateValue.HISTORY][HistoryValue.TIMINGS]
+        if samples <= 0:
+            return timings.get("eta")
+        t = elapsed / samples
+        r = self.cfg[ConfigValue.ITERATIONS] - self.state[StateValue.ITERATION]
+        if self.testset is not None:
+            r += len(self.test_sampler) * math.ceil(
+                r / self.cfg[ConfigValue.EVAL_INTERVAL])
+        new_eta = t * r
+        if "eta" not in timings or isinstance(timings["eta"], TrackedTime):
+            timings["eta"] = new_eta
+        else:
+            timings["eta"] = (smoothing_factor * new_eta
+                              + (1 - smoothing_factor) * timings["eta"])
+        return timings["eta"]
+
+
+def resume_run(run_dir: str, iteration: int = None, mode: str = None,
+               device=None) -> DenoiserTrainer:
+    """Resume training from a `.training` snapshot, the latest by default
+    or ``model_{iteration:08d}.training`` (train.py:1656-1699)."""
+    run_dir = os.path.abspath(run_dir)
+    runs_dir = os.path.abspath(os.path.join(run_dir, ".."))
+    if mode is None:
+        if os.path.isdir(os.path.join(run_dir, "training_jt")):
+            mode = "joint"
+        elif os.path.isdir(os.path.join(run_dir, "training_dn")):
+            mode = "denoise"
+        else:
+            raise FileNotFoundError(
+                f"no training_jt/ or training_dn/ snapshots under {run_dir}")
+    subdir = "training_jt" if mode == "joint" else "training_dn"
+    if iteration is None:
+        path = ckpt.find_latest_training(run_dir, subdir)
+    else:
+        path = os.path.join(run_dir, subdir, f"model_{iteration:08d}.training")
+        if not os.path.isfile(path):
+            raise FileNotFoundError(
+                f"no snapshot for iteration {iteration} under "
+                f"{os.path.join(run_dir, subdir)}")
+    logger.info("Loading from '%s'...", path)
+    trainer = DenoiserTrainer(None, mode=mode, runs_dir=runs_dir,
+                              run_dir=os.path.basename(run_dir), device=device)
+    trainer.load_state_dict(path)
+    logger.info("Loaded training state.")
+    for timing in trainer.state[StateValue.HISTORY][
+            HistoryValue.TIMINGS].values():
+        if isinstance(timing, TrackedTime):
+            timing.forget()
+    return trainer

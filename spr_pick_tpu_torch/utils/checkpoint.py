@@ -10,27 +10,37 @@ Loading goes through an unpickler that resolves every global itself:
   * ``spr_pick_tpu.params.<Enum>`` -> this package's copy of that enum (the
     cfg of a file written by the JAX package is keyed by those members);
   * ``optax`` optimizer-state classes (a ``.training`` file's
-    ``opt_state``) -> :class:`OptState`, a tuple that keeps the class name;
-  * numpy's array and dtype reconstructors, and the port's own enums.
+    ``opt_state``, ``ScaleByAdamState(count, mu, nu)``) -> :class:`OptState`,
+    a tuple that keeps the class name;
+  * numpy's array and dtype reconstructors.
 
 Anything else (another ``spr_pick_tpu``, ``jax`` or ``flax`` global, or a
 reference PyTorch checkpoint, which needs ``compat.py``: a later slice) is
 refused with a clear error.
 
-`save_weights` writes the same dict layout keyed by the port's own enums;
-the JAX package cannot read those files yet (ROADMAP.md).  Converting the
-numpy trees to and from module state is `spr_pick_tpu_torch/weights.py`.
+`save_weights` and `save_training` write the same dict layout, and write
+the globals under the JAX package's names: each enum class as
+``spr_pick_tpu.params.<Enum>`` and the optimizer state as optax's
+``ScaleByAdamState``, so the JAX package reads the port's files.  A
+pure-Python pickler writes those names as opcodes; neither module is
+imported.  Converting the numpy trees to and from module state is
+`spr_pick_tpu_torch/weights.py`.
 """
 
 from __future__ import annotations
 
+import enum
+import glob
 import os
 import pickle
-from typing import Any, Dict
+import re
+from typing import Any, Dict, Optional
 
 from spr_pick_tpu_torch import params
 
 WT_FORMAT = "spr_pick_tpu.wt.v1"
+TRAINING_FORMAT = "spr_pick_tpu.training.v1"
+_ADAM_MODULE = "optax._src.transform"
 
 _ZIP_MAGIC = b"PK"  # torch>=1.6 serialisation (a reference checkpoint)
 
@@ -41,19 +51,34 @@ class CheckpointError(ValueError):
 
 class OptState(tuple):
     """Stand-in for an optax state namedtuple (e.g. ``ScaleByAdamState``):
-    the fields in order, and the optax class name in ``optax_name``."""
+    the fields in order, and the optax class name in ``optax_name``.  It
+    pickles like a namedtuple (``cls(*fields)``), under optax's name."""
 
+    __slots__ = ()
     optax_name = "OptState"
+    optax_module = _ADAM_MODULE
 
     def __new__(cls, *fields):
         return super().__new__(cls, fields)
+
+    def __getnewargs__(self):
+        return tuple(self)
 
     def __repr__(self):
         return f"{self.optax_name}{tuple.__repr__(self)}"
 
 
-def _opt_state_class(name: str) -> type:
-    return type(name, (OptState,), {"optax_name": name})
+_OPT_STATE_CLASSES: Dict[str, type] = {}
+
+
+def _opt_state_class(name: str, module: str = _ADAM_MODULE) -> type:
+    if name not in _OPT_STATE_CLASSES:
+        _OPT_STATE_CLASSES[name] = type(name, (OptState,), {
+            "__slots__": (), "optax_name": name, "optax_module": module})
+    return _OPT_STATE_CLASSES[name]
+
+
+ScaleByAdamState = _opt_state_class("ScaleByAdamState")
 
 
 _NUMPY_MODULES = ("numpy", "numpy.core.multiarray", "numpy._core.multiarray",
@@ -68,7 +93,7 @@ class _Unpickler(pickle.Unpickler):
             if isinstance(enum, type):
                 return enum
         elif module.startswith("optax.") and name.endswith("State"):
-            return _opt_state_class(name)
+            return _opt_state_class(name, module)
         elif module in _NUMPY_MODULES or module.startswith("numpy.random"):
             return super().find_class(module, name)
         raise CheckpointError(
@@ -99,19 +124,73 @@ def load(path: str) -> Dict[str, Any]:
     return state
 
 
+class _JaxNamesPickler(pickle._Pickler):
+    """Protocol-4 pickler that writes the port's enum classes and optimizer
+    states under the JAX package's global names, as STACK_GLOBAL opcodes
+    (the C pickler would import the module to check the name)."""
+
+    def save_global(self, obj, name=None):
+        if isinstance(obj, type) and issubclass(obj, OptState):
+            target = (obj.optax_module, obj.optax_name)
+        elif (isinstance(obj, type) and issubclass(obj, enum.Enum)
+              and obj.__module__ == params.__name__):
+            target = ("spr_pick_tpu.params", obj.__qualname__)
+        else:
+            return super().save_global(obj, name)
+        self.save(target[0])
+        self.save(target[1])
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
+
+
+def _dump(path: str, state: Dict) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        _JaxNamesPickler(f, protocol=4).dump(state)
+
+
 def save_weights(path: str, trainable, static, cfg: Dict, mode: str) -> None:
     """Write a `.wt` (weights + cfg) in the JAX package's dict layout.
 
     ``trainable``/``static`` are numpy trees in the flax layout
     (`weights.state_to_flax`); ``cfg`` is keyed by this package's enums.
     """
-    state = {
+    _dump(path, {
         "format": WT_FORMAT,
         "cfg": cfg,
         "mode": mode,
         "trainable": trainable,
         "static": static,
-    }
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    with open(path, "wb") as f:
-        pickle.dump(state, f, protocol=4)
+    })
+
+
+def save_training(path: str, trainable, static, opt_state, cfg: Dict,
+                  mode: str, iteration: int, rng_key=None,
+                  extra: Optional[Dict] = None) -> None:
+    """Write a resumable `.training` (spr_pick_tpu/utils/checkpoint.py:32-56):
+    the weights, ``opt_state`` (a `ScaleByAdamState` of numpy trees in the
+    flax layout), the iteration, the uint32[2] ``rng_key`` and ``extra``."""
+    _dump(path, {
+        "format": TRAINING_FORMAT,
+        "cfg": cfg,
+        "mode": mode,
+        "iteration": int(iteration),
+        "trainable": trainable,
+        "static": static,
+        "opt_state": opt_state,
+        "rng_key": rng_key,
+        "extra": extra or {},
+    })
+
+
+def find_latest_training(run_dir: str, subdir: str = "training_jt") -> str:
+    """The max-iteration *.training file of a run dir
+    (spr_pick_tpu/utils/checkpoint.py:119-129; reference train.py:1220-1230)."""
+    iterations = {}
+    for path in glob.glob(os.path.join(run_dir, subdir, "*.training")):
+        found = re.findall(r"\d+", os.path.basename(path))
+        if found:
+            iterations[int(found[0])] = path
+    if not iterations:
+        raise ValueError("Run directory contains no training files.")
+    return iterations[max(iterations)]

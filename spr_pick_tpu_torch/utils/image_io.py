@@ -6,13 +6,16 @@ math in torch on the tensor's device (same bytes: min and max are exact,
 ``hi - lo`` of two float32 values rounds once either way, and the float to
 uint8 cast truncates toward zero in both), and `write_png` encodes with
 `zlib` at the JAX package's default level 1 (filter 0 on every row).
+`ScalarWriter` is the run dir's scalar log (`:96-123`).
 """
 
 from __future__ import annotations
 
+import json
 import os
 import struct
 import zlib
+from typing import Optional
 
 import numpy as np
 import torch
@@ -85,3 +88,31 @@ def save_u8_image(u8, path: str) -> None:
 
 def save_array_image(img: np.ndarray, path: str) -> None:
     save_u8_image(to_u8(img), path)
+
+
+class ScalarWriter:
+    """TensorBoard + JSONL scalar writer of a run dir, with purge-on-resume.
+
+    Parity: `spr_pick_tpu/utils/image_io.py:96-123`: real tfevents records
+    (`utils/tfevents.py`) and a `scalars.jsonl` sink beside them.
+    """
+
+    def __init__(self, log_dir: str, purge_step: Optional[int] = None):
+        from spr_pick_tpu_torch.utils.tfevents import TFEventWriter
+
+        os.makedirs(log_dir, exist_ok=True)
+        self.log_dir = log_dir
+        self._tb = TFEventWriter(log_dir, purge_step=purge_step)
+        self._jsonl = open(os.path.join(log_dir, "scalars.jsonl"), "a")
+
+    def add_scalar(self, tag: str, value, step: int):
+        value = float(np.asarray(value))
+        self._tb.add_scalar(tag, value, step)
+        self._jsonl.write(
+            json.dumps({"tag": tag, "value": value, "step": step}) + "\n"
+        )
+        self._jsonl.flush()
+
+    def close(self):
+        self._tb.close()
+        self._jsonl.close()

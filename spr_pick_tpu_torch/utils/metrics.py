@@ -1,12 +1,13 @@
-"""Running-mean metrics, PSNR and console formatting for evaluation.
+"""Running-mean metrics, time tracking, PSNR and console formatting.
 
-The PyTorch port's copy of what the evaluator uses from
-`spr_pick_tpu/utils/metrics.py` (Metric, MetricDict, separator, mse2psnr,
+The PyTorch port's copy of `spr_pick_tpu/utils/metrics.py` (Metric,
+MetricDict, TrackedTime, seconds_to_dhms, separator, mse2psnr,
 calculate_psnr), over numpy arrays.
 """
 
 from __future__ import annotations
 
+import time
 from collections import OrderedDict
 
 import numpy as np
@@ -52,6 +53,37 @@ class MetricDict(OrderedDict):
     def __missing__(self, key):
         self[key] = value = Metric()
         return value
+
+
+class TrackedTime:
+    """Accumulates wall-clock time between `update()` calls."""
+
+    def __init__(self):
+        self.total = 0
+        self.last_time = None
+
+    def update(self):
+        current_time = time.time()
+        if self.last_time is not None:
+            self.total += current_time - self.last_time
+        self.last_time = current_time
+
+    def forget(self):
+        self.last_time = None
+
+
+def seconds_to_dhms(seconds: float, trim: bool = True) -> str:
+    s = seconds % 60
+    m = (seconds // 60) % 60
+    h = seconds // (60 * 60) % 24
+    d = seconds // (60 * 60 * 24)
+    time_str = ""
+    for t, char in ((d, "d"), (h, "h"), (m, "m"), (s, "s")):
+        if trim and t < 1:
+            continue
+        trim = False
+        time_str += "{:02}{}".format(int(t), char)
+    return time_str
 
 
 def separator(cols: int = 100) -> str:

@@ -16,6 +16,8 @@ The port's modules carry the flax submodule names, so a flax path maps to a
   ``l_params/estimated_sigma``      -> kept as it is
 
 `flax_to_state` and `state_to_flax` are exact inverses on these trees.
+`named_to_flax` and `flax_to_named` apply the same transforms to any
+tensors aligned with the trainable parameters, such as Adam's moments.
 """
 
 from __future__ import annotations
@@ -104,3 +106,19 @@ def state_to_flax(states: Dict[str, Dict]) -> Tuple[Dict, Dict]:
             k: v.detach().cpu().numpy() for k, v in states["l_params"].items()
         }
     return trainable, static
+
+
+def named_to_flax(named) -> Dict:
+    """(group, state key, tensor) triples (`Denoiser.named_trainable`) ->
+    one numpy tree in the flax trainable layout."""
+    states: Dict[str, Dict] = {}
+    for group, key, t in named:
+        states.setdefault(group, {})[key] = t
+    return state_to_flax(states)[0]
+
+
+def flax_to_named(tree: Dict, named) -> list:
+    """Inverse of `named_to_flax`: the tree's float32 CPU tensors in the
+    order of ``named``."""
+    states = flax_to_state(tree, {})
+    return [states[group][key] for group, key, _ in named]

@@ -48,7 +48,12 @@ def test_port_imports_no_jax_in_a_fresh_process():
     assert {"spr_pick_tpu_torch.parallel.tiling", "spr_pick_tpu_torch.eval",
             "spr_pick_tpu_torch.cli.cli", "spr_pick_tpu_torch.__main__",
             "spr_pick_tpu_torch.data.star_export",
-            "spr_pick_tpu_torch.utils.image_io"} <= mods
+            "spr_pick_tpu_torch.utils.image_io",
+            "spr_pick_tpu_torch.train", "spr_pick_tpu_torch.steps",
+            "spr_pick_tpu_torch.data.sampler",
+            "spr_pick_tpu_torch.utils.schedule",
+            "spr_pick_tpu_torch.utils.tfevents",
+            "spr_pick_tpu_torch.utils.profiling"} <= mods
 
 
 _FORBIDDEN = re.compile(
@@ -79,6 +84,15 @@ def test_denoiser_defaults_to_the_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Denoiser(c)
     assert Denoiser(c, device="cpu").device == torch.device("cpu")
+
+
+def test_trainer_defaults_to_the_gpu(monkeypatch):
+    from spr_pick_tpu_torch.train import DenoiserTrainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DenoiserTrainer(None)
+    assert DenoiserTrainer(None, device="cpu").device == torch.device("cpu")
 
 
 def test_k1_wrapper_sends_cpu_tensors_to_the_plain_version():
