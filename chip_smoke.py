@@ -82,7 +82,24 @@ script then exits nonzero and prints no result):
      `_scores.txt` rows equal K1's plain version on the same heatmaps;
      timings: steps/s and samples/s, a step's data plane, forward +
      backward and Adam (CUDA events), the validation pass, and the idle
-     share of three traced steps.
+     share of three traced steps;
+ 11. denoise-only training: the device data plane on the card against
+     its CPU run for the same coordinates and draws (crops, an n2n
+     reference of a range style, UPS input and mask: equal); one float32
+     train step (TF32 off) on the card against the CPU from the same
+     seeded weights, batch and sample noise for ssdn (1 channel, const;
+     its detector's BatchNorm statistics too), n2n, n2v (fed the same UPS
+     draws) and ssdn on 3 channels with the full covariance (batch 4);
+     `train start --dn_only -a ssdn` at the defaults (bf16, batch 16,
+     64^2) on four noisy 1024^2 MRCs with planted blobs, validating on a
+     fifth against its clean twin, then `train resume` of a copy, then a
+     short n2v run, all in process: `training_dn/`, `final-*.wt`, the
+     nsy/out/out-mu/out-std PNGs, a finite PSNR, no `_scores.txt`, and K1
+     launched 0 times; `Picker(final.wt).denoise` card vs CPU in float32
+     (n2v's output, ssdn's U-Net outputs within 1e-5 relative L2, ssdn's
+     posterior mean against its formula) and `pick_arrays` refused;
+     timings: samples/s for ssdn and n2v, a step's parts, the validation
+     pass and three traced steps.
 
 The weights are random, made from a seed.  The detector's 1x1 classifier
 takes the absolute value of its random weights and a scale and bias fitted
@@ -1310,6 +1327,445 @@ def time_training(t, gpu: str) -> None:
     log(f"profile train 3 steps: {profile_call(lambda: window(3))} | {gpu}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: denoise-only training on the card
+# ---------------------------------------------------------------------------
+
+DN_ITERS = 64        # `train start --dn_only -a ssdn`: 4 steps at batch 16
+DN_STYLE = "gauss10_50"  # a range style: per-item s.d. draws on the card
+DN_SIGMA = 4.0       # raw learnt sigma of the 3-channel step (s.d. 0.69)
+DN_RGB_BATCH = 4     # the 3-channel full-covariance step, cut to size
+DN_PICKER_SHAPE = (256, 320)
+
+
+def denoise_micrograph(seed: int):
+    """(clean, noisy) 1024^2: 52 Gaussian blobs (radius ~6 px) and the same
+    plus unit Gaussian noise."""
+    rng = np.random.RandomState(seed)
+    clean = np.zeros((SIZE, SIZE), np.float32)
+    yy, xx = np.mgrid[-24:25, -24:25]
+    blob = (4.0 * np.exp(-(yy ** 2 + xx ** 2) / 72.0)).astype(np.float32)
+    for cy, cx in rng.randint(40, SIZE - 40, size=(52, 2)):
+        clean[cy - 24:cy + 25, cx - 24:cx + 25] += blob
+    return clean, clean + rng.randn(SIZE, SIZE).astype(np.float32)
+
+
+def write_denoise_set(d: str):
+    """train/ (four noisy 1024^2 MRCs), val/ (one) and gt/ (its clean twin);
+    returns the folders."""
+    from spr_pick_tpu_torch.data import mrc
+
+    paths = {k: os.path.join(d, k) for k in ("train", "val", "gt")}
+    for p in paths.values():
+        os.makedirs(p)
+    for i in range(4):
+        mrc.write(os.path.join(paths["train"], f"dn{i}.mrc"),
+                  denoise_micrograph(SEED + 50 + i)[1])
+    clean, noisy = denoise_micrograph(SEED + 54)
+    mrc.write(os.path.join(paths["val"], "dnval.mrc"), noisy)
+    mrc.write(os.path.join(paths["gt"], "dnval.mrc"), clean)
+    return paths
+
+
+def denoise_cfg(algorithm: str, dtype: str, channels: int = 1):
+    from spr_pick_tpu_torch import cfg as cfg_mod
+    from spr_pick_tpu_torch.params import (ConfigValue, NoiseAlgorithm,
+                                           NoiseValue)
+
+    c = cfg_mod.base()
+    c[ConfigValue.ALGORITHM] = NoiseAlgorithm(algorithm)
+    c[ConfigValue.NOISE_STYLE] = DN_STYLE
+    if algorithm == "ssdn":
+        c[ConfigValue.NOISE_VALUE] = NoiseValue.UNKNOWN_CONSTANT
+    c[ConfigValue.COMPUTE_DTYPE] = dtype
+    c[ConfigValue.IMAGE_CHANNELS] = channels
+    return c
+
+
+def denoise_step_card_vs_cpu(algorithm: str, batch, eps=None,
+                             channels: int = 1):
+    """One float32 denoise-only train step on the card and on the CPU from
+    the same seeded weights, batch and sample noise: loss terms, gradients
+    (relative L2; leaves the loss does not reach must have no gradient on
+    either device), the detector's BatchNorm statistics, and the parameters
+    after Adam on the CPU's gradients.  Returns the largest errors."""
+    from spr_pick_tpu_torch import weights
+    from spr_pick_tpu_torch.denoiser import Denoiser
+    from spr_pick_tpu_torch.params import PipelineOutput as PO
+    from spr_pick_tpu_torch.steps import make_optimizer
+
+    c = denoise_cfg(algorithm, "f32", channels)
+    cpu = Denoiser(c, mode="denoise", device="cpu")
+    cpu.init_variables(SEED)
+    if channels > 1:
+        with torch.no_grad():
+            cpu.l_params["estimated_sigma"].fill_(DN_SIGMA)
+    card = Denoiser(c, mode="denoise", device="cuda")
+    card.load_variables(*cpu.variables())
+    out = {}
+    for name, den in (("card", card), ("cpu", cpu)):
+        dev = den.device
+        den.train()
+        draws = {} if eps is None else {"eps": torch.from_numpy(eps).to(dev)}
+        loss, outs = den.run_pipeline(
+            {k: torch.from_numpy(v).to(dev) for k, v in batch.items()},
+            True, **draws)
+        loss.backward()
+        named = den.named_trainable()
+        grads = dict(tree_leaves(weights.named_to_flax(
+            (g, k, t.grad) for g, k, t in named if t.grad is not None)))
+        out[name] = (loss.item(), outs[PO.LOSS].detach().cpu().numpy(),
+                     grads, dict(tree_leaves(den.variables()[1])))
+    (l_card, t_card, g_card, s_card), (l_cpu, t_cpu, g_cpu, s_cpu) = \
+        out["card"], out["cpu"]
+    err = {"loss": max(abs(l_card - l_cpu) / abs(l_cpu),
+                       float(np.abs((t_card - t_cpu) / t_cpu).max())),
+           "bn": 0.0, "leaf l2": 0.0}
+    if err["loss"] > STEP_RTOL_LOSS:
+        raise AssertionError(f"{algorithm} step loss: card vs CPU rtol "
+                             f"{err['loss']:.3e}")
+    if g_card.keys() != g_cpu.keys():
+        raise AssertionError(f"{algorithm} step: gradient leaves differ")
+    has_detector = any("/detector/" in k for k in s_cpu)
+    if has_detector and any("/detector/" in k for k in g_cpu):
+        raise AssertionError(f"{algorithm} step: the detector got a gradient")
+    num = den_ = 0.0
+    for k, want in g_cpu.items():
+        diff = g_card[k] - want
+        num += float(np.sum(diff ** 2))
+        den_ += float(np.sum(want ** 2))
+        d = float(np.linalg.norm(diff) / max(np.linalg.norm(want), 1e-30))
+        err["leaf l2"] = max(err["leaf l2"], d)
+        if d > STEP_LEAF_L2:
+            raise AssertionError(f"{algorithm} step gradient {k}: card vs "
+                                 f"CPU {d:.3e}")
+    err["grad l2"] = (num / den_) ** 0.5
+    if err["grad l2"] > STEP_GRAD_L2:
+        raise AssertionError(f"{algorithm} step gradient: card vs CPU "
+                             f"relative L2 {err['grad l2']:.3e}")
+    for k, want in s_cpu.items():
+        d = float(np.abs(s_card[k] - want).max())
+        err["bn"] = max(err["bn"], d)
+        if d > STEP_ATOL_BN:
+            raise AssertionError(f"{algorithm} BatchNorm {k}: card vs CPU "
+                                 f"{d:.3e}")
+    opt_card, opt_cpu = make_optimizer(card), make_optimizer(cpu)
+    for pc, pg in zip(opt_cpu.params, opt_card.params):
+        pg.grad = None if pc.grad is None else pc.grad.to("cuda")
+    opt_card.step(1e-4)
+    opt_cpu.step(1e-4)
+    err["adam"] = 0.0
+    for pg, pc in zip(opt_card.params, opt_cpu.params):
+        got, want = pg.detach().cpu().numpy(), pc.detach().numpy()
+        if not np.allclose(got, want, rtol=ADAM_RTOL, atol=ADAM_ATOL):
+            raise AssertionError(f"{algorithm}: Adam on the card differs "
+                                 f"from the CPU by "
+                                 f"{float(np.abs(got - want).max()):.3e}")
+        err["adam"] = max(err["adam"], float(np.abs(got - want).max()))
+    return err
+
+
+def denoise_plane_card_vs_cpu(folder: str):
+    """The device data plane on the card against its CPU run for the same
+    coordinates and draws (made on the CPU): crops, the n2n reference of a
+    range style and the UPS input and mask equal, element for element.
+    Returns (crops, reference, UPS input, UPS mask) from the CPU."""
+    from spr_pick_tpu_torch.data import n2v
+    from spr_pick_tpu_torch.data.folder import UnlabelledImageFolderDataset
+    from spr_pick_tpu_torch.data.noise import add_style_torch
+    from spr_pick_tpu_torch.data.patches import DeviceDenoisePipeline
+    from spr_pick_tpu_torch.params import NoiseAlgorithm
+
+    data = UnlabelledImageFolderDataset(folder)
+    planes = [DeviceDenoisePipeline(data, TRAIN_PATCH,
+                                    NoiseAlgorithm.NOISE_TO_VOID, DN_STYLE,
+                                    seed=SEED, device=dev)
+              for dev in ("cuda", "cpu")]
+    coords = planes[1].sample_coords((TRAIN_BATCH,))
+    g = torch.Generator().manual_seed(SEED + 60)
+    by, bx = n2v.grid_shape(TRAIN_PATCH, TRAIN_PATCH)
+    u = torch.rand((TRAIN_BATCH, 1, 1), generator=g)
+    normal = torch.randn((TRAIN_BATCH, TRAIN_PATCH, TRAIN_PATCH), generator=g)
+    ups = [torch.rand((TRAIN_BATCH, by, bx), generator=g) for _ in range(3)]
+    got = []
+    for plane in planes:
+        dev = plane.device
+        crops = plane.gather(*coords)
+        ref, _ = add_style_torch(crops, DN_STYLE, uniform=u.to(dev),
+                                 noise=normal.to(dev))
+        inp, mask = n2v.manipulate_torch(crops, *(x.to(dev) for x in ups))
+        got.append([t.cpu() for t in (crops, ref, inp, mask)])
+    for name, a, b in zip(("crops", "n2n reference", "UPS input", "UPS mask"),
+                          *got):
+        if not torch.equal(a, b):
+            raise AssertionError(f"device plane {name}: card != CPU, max "
+                                 f"|diff| {float((a - b).abs().max()):.3e}")
+    return got[1]
+
+
+def denoise_commands(paths, tmp: str, nms_cuda) -> dict:
+    """`train start --dn_only -a ssdn` at the defaults (bf16, batch 16, 64^2)
+    in process with validation on the gt'ed micrograph, then `train resume`
+    of a copy from its middle snapshot, then a short n2v run: their
+    layouts, images, PSNR, and K1 launched in none of them.  Returns (run
+    dirs, K1's launches in the three runs)."""
+    import shutil
+
+    from spr_pick_tpu_torch.cli import cli
+
+    half = DN_ITERS // 2
+    runs = {}
+    nms_cuda.greedy_nms_cuda.launches = 0
+    secs = {}
+    for algo, iters, extra in (
+            ("ssdn", DN_ITERS, ["--noise_value", "const", "-v", paths["val"],
+                                "-vgt", paths["gt"], "--eval_interval",
+                                str(half)]),
+            ("n2v", half, [])):
+        d = os.path.join(tmp, f"dn_runs_{algo}")
+        t0 = time.perf_counter()
+        cli.start(["train", "start", "--dn_only", "-a", algo, "-n", DN_STYLE,
+                   "-t", paths["train"], "-l", "none", "--alpha", "0.8",
+                   "--tau", "0.01", "--iterations", str(iters),
+                   "--checkpoint_interval", str(half), "--print_interval",
+                   str(half), "--runs_dir", d, *extra])
+        secs[algo] = time.perf_counter() - t0
+        (name,) = os.listdir(d)
+        runs[algo] = os.path.join(d, name)
+    run = runs["ssdn"]
+    resumed = os.path.join(tmp, "dn_resumed", os.path.basename(run))
+    shutil.copytree(run, resumed)
+    t0 = time.perf_counter()
+    cli.start(["train", "resume", resumed, "--iteration", str(half)])
+    secs["resume"] = time.perf_counter() - t0
+    launches = nms_cuda.greedy_nms_cuda.launches
+    if launches != 0:
+        raise AssertionError(f"denoise-only training launched K1 {launches} "
+                             "times")
+    final = f"final-ssdn-{DN_STYLE}-iter{DN_ITERS}-0.8-0.01-denoise.wt"
+    psnr = []
+    for label, r in (("start", run), ("resume", resumed)):
+        snaps = sorted(os.listdir(os.path.join(r, "training_dn")))
+        want = [f"model_{i:08d}.training" for i in (0, half, DN_ITERS)]
+        if snaps != want or not os.path.isfile(os.path.join(r, final)):
+            raise AssertionError(f"dn train {label}: snapshots {snaps}")
+        files = os.listdir(os.path.join(r, "val_imgs_denoise"))
+        for desc in ("nsy", "out", "out-mu", "out-std"):
+            if f"dnval_{half:08d}_{desc}.png" not in files:
+                raise AssertionError(f"dn train {label}: no {desc} PNG")
+        if any(f.endswith("_scores.txt") for _, _, fs in os.walk(r)
+               for f in fs):
+            raise AssertionError(f"dn train {label}: a _scores.txt")
+        rows = read_scalars(r)
+        p = [row["value"] for row in rows if row["tag"] == "valid/psnr_out"]
+        if not p or not all(np.isfinite(row["value"]) for row in rows):
+            raise AssertionError(f"dn train {label}: PSNR {p}")
+        psnr.append(p)
+    log(f"dn train commands (in process): ssdn start {secs['ssdn']:.1f} s, "
+        f"resume from {half} {secs['resume']:.1f} s, n2v start "
+        f"{secs['n2v']:.1f} s; snapshots at 0, {half}, {DN_ITERS} and {final}"
+        f"; nsy/out/out-mu/out-std PNGs; no _scores.txt; validation PSNR "
+        f"{', '.join(f'{v:.4f}' for v in psnr[0])} dB at 0, {half}, "
+        f"{DN_ITERS} (start), {psnr[1][-1]:.4f} dB at {DN_ITERS} (resume); "
+        f"K1 launched {launches} times")
+    return runs, launches
+
+
+def f32_weights(run: str, tmp: str) -> str:
+    """A float32 copy (COMPUTE_DTYPE f32) of the run's final `.wt`."""
+    from spr_pick_tpu_torch.params import ConfigValue
+    from spr_pick_tpu_torch.utils import checkpoint as ckpt
+
+    (final,) = [f for f in os.listdir(run) if f.startswith("final-")]
+    state = ckpt.load(os.path.join(run, final))
+    state["cfg"][ConfigValue.COMPUTE_DTYPE] = "f32"
+    wt = os.path.join(tmp, "f32-" + final)
+    ckpt.save_weights(wt, state["trainable"], state["static"], state["cfg"],
+                      state["mode"])
+    return wt
+
+
+def rel_l2(got, want) -> float:
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def denoise_picker_card_vs_cpu(Picker, runs, tmp: str) -> dict:
+    """`Picker(final.wt).denoise` on the card against the CPU in float32
+    (TF32 off) on a 256x320 crop of the validation micrograph, for the n2v
+    and the ssdn run, and `pick_arrays` refused.
+
+    n2v's denoised image is the U-Net's output: within 1e-5 relative L2.
+    ssdn's is the posterior mean (y sx + mu sn) / (sx + sn), which magnifies
+    the U-Net's float32 rounding where the model's variance sx meets the
+    noise variance sn and mu lies far from y.  So ssdn's U-Net outputs mu
+    and sqrt(sx) are held within 1e-5 relative L2, and the card's posterior
+    mean to the formula evaluated on the CPU from the card's own mu, sx and
+    sn within 1e-5; the card-vs-CPU posterior mean is reported, beside how
+    far a one-ulp move of every weight carries mu and the posterior mean on
+    the card.  Returns the errors."""
+    from spr_pick_tpu_torch import losses
+    from spr_pick_tpu_torch.params import PipelineOutput as PO
+
+    h, w = DN_PICKER_SHAPE
+    mic = denoise_micrograph(SEED + 54)[1][:h, :w]
+    err = {}
+    wt = f32_weights(runs["n2v"], tmp)
+    got = Picker(wt).denoise(mic)
+    err["n2v denoise rel L2"] = rel_l2(got, Picker(wt, device="cpu").denoise(mic))
+    wt = f32_weights(runs["ssdn"], tmp)
+    card, cpu = Picker(wt), Picker(wt, device="cpu")
+    got, want = card.denoise(mic), cpu.denoise(mic)
+    if got.shape != DN_PICKER_SHAPE:
+        raise AssertionError(f"Picker.denoise shape {got.shape}")
+    err["ssdn posterior mean rel L2"] = rel_l2(got, want)
+    err["ssdn posterior mean max |diff|"] = float(np.abs(got - want).max())
+    keys = (PO.IMG_MU, PO.MODEL_STD_DEV, PO.NOISE_STD_DEV, PO.IMG_DENOISED)
+    net_card, net_cpu = ({k: outs[k][0, :, :, 0].float().cpu() for k in keys}
+                         for outs in (p._forward([mic])[0] for p in (card, cpu)))
+    for k, name in ((PO.IMG_MU, "mu"), (PO.MODEL_STD_DEV, "model s.d.")):
+        err[f"ssdn {name} rel L2"] = rel_l2(net_card[k].numpy(),
+                                            net_cpu[k].numpy())
+    _, pme, _, _ = losses.gaussian_nll_pme(
+        torch.from_numpy(mic), net_card[PO.IMG_MU],
+        net_card[PO.MODEL_STD_DEV] ** 2, net_card[PO.NOISE_STD_DEV])
+    err["ssdn posterior mean vs its formula max |diff|"] = float(
+        (net_card[PO.IMG_DENOISED] - pme).abs().max())
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    with torch.no_grad():
+        for t in card.denoiser.model.parameters():
+            up = torch.randint(0, 2, t.shape, generator=g, device="cuda") > 0
+            t.copy_(torch.nextafter(t, torch.where(up, np.inf, -np.inf)))
+    moved = card._forward([mic])[0]
+    err["ssdn one-ulp weight move: mu rel L2"] = rel_l2(
+        moved[PO.IMG_MU][0, :, :, 0].cpu().numpy(),
+        net_card[PO.IMG_MU].numpy())
+    err["ssdn one-ulp weight move: posterior mean rel L2"] = rel_l2(
+        moved[PO.IMG_DENOISED][0, :, :, 0].cpu().numpy(),
+        net_card[PO.IMG_DENOISED].numpy())
+    log("dn Picker.denoise float32 card vs CPU: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in err.items()))
+    for k in ("n2v denoise rel L2", "ssdn mu rel L2", "ssdn model s.d. rel L2",
+              "ssdn posterior mean vs its formula max |diff|"):
+        if err[k] > 1e-5:
+            raise AssertionError(f"Picker.denoise card vs CPU: {k} "
+                                 f"{err[k]:.3e}")
+    try:
+        card.pick_arrays(mic)
+    except ValueError as exc:
+        if "no detector head" not in str(exc):
+            raise
+    else:
+        raise AssertionError("Picker.pick on a denoise-only .wt did not raise")
+    return err
+
+
+def time_denoise_training(run: str, gpu: str, profile: bool) -> float:
+    """Samples/s of denoise-only training at batch 16 bf16 64^2 (the
+    trainer's own step on its device data plane, after warm-up), a step's
+    parts with CUDA events; for ssdn also the validation pass and the idle
+    share of three traced steps.  Returns samples/s."""
+    from spr_pick_tpu_torch.params import ConfigValue
+    from spr_pick_tpu_torch.steps import train_step
+    from spr_pick_tpu_torch.train import resume_run
+
+    t = resume_run(run, device="cuda")
+    t.trainset, t.train_sampler, t.patch_pipeline = t.train_data()
+    algo = t.cfg[ConfigValue.ALGORITHM].value
+    state, den = t.train_state, t.denoiser
+    den.train()
+    gen = t._train_generator
+    steps = 5
+
+    def window(n=steps):
+        for _ in range(n):
+            train_step(state, t.next_batch(TRAIN_BATCH), 1e-4, 0.8, 0.01,
+                       generator=gen)
+
+    text, med = summary(host_ms(window))
+    rate = 1e3 * steps * TRAIN_BATCH / med
+    log(f"timing dn train {algo}, {steps} steps at batch {TRAIN_BATCH} bf16 "
+        f"{TRAIN_PATCH}^2: {text} | {gpu}")
+    log(f"rate dn train {algo}: {1e3 * steps / med:.3f} steps/s, "
+        f"{rate:.1f} samples/s | {gpu}")
+    parts = {"data plane (coords, gather, noise, UPS)": [],
+             "forward + backward": [], "Adam": []}
+    for _ in range(RUNS + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        b = t.next_batch(TRAIN_BATCH)
+        ev[1].record()
+        for p in state.opt.params:
+            p.grad = None
+        loss, _ = den.run_pipeline(b, True, generator=gen)
+        loss.backward()
+        ev[2].record()
+        state.opt.step(1e-4)
+        ev[3].record()
+        torch.cuda.synchronize()
+        for (name, ms), i in zip(parts.items(), range(3)):
+            ms.append(ev[i].elapsed_time(ev[i + 1]))
+    for name, ms in parts.items():
+        log(f"timing dn train {algo} step part, {name}: {summary(ms[1:])[0]} "
+            f"| {gpu}")
+    if profile:
+        t.testset, t.test_sampler = t.test_data()
+        text, _ = summary(host_ms(t.validate))
+        log(f"timing dn validation pass, one 1024^2 micrograph with its "
+            f"artifacts: {text} | {gpu}")
+        log(f"profile dn train {algo} 3 steps: "
+            f"{profile_call(lambda: window(3))} | {gpu}")
+    return rate
+
+
+def denoise_phase(tmp: str, Picker, nms_cuda, gpu: str) -> int:
+    """Phase 11.  Returns K1's launches in the denoise-only runs (0: a
+    denoise-only pipeline has no detector output to pick from)."""
+    from spr_pick_tpu_torch.data.noisy import prepare_batch
+    from spr_pick_tpu_torch.params import NoiseAlgorithm
+
+    paths = write_denoise_set(os.path.join(tmp, "dnset"))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    crops, ref, ups_inp, ups_mask = denoise_plane_card_vs_cpu(paths["train"])
+    log(f"dn device plane card vs CPU, {TRAIN_BATCH} crops of "
+        f"{TRAIN_PATCH}^2: crops, n2n reference ({DN_STYLE}) and UPS "
+        f"input/mask ({int(ups_mask.sum())} targets) equal")
+    crops = crops.numpy()
+    rng = np.random.RandomState(SEED + 61)
+    eps = rng.randn(*crops.shape, 1).astype(np.float32)
+    rgb = rng.rand(DN_RGB_BATCH, TRAIN_PATCH, TRAIN_PATCH, 3).astype(
+        np.float32)
+    cases = (
+        ("ssdn", {"inp": crops[..., None]}, eps, 1),
+        ("n2n", prepare_batch(crops, NoiseAlgorithm.NOISE_TO_NOISE, DN_STYLE,
+                              rng), None, 1),
+        ("n2v", {"inp": ups_inp.numpy()[..., None],
+                 "ref": ref.numpy()[..., None],
+                 "mask": ups_mask.numpy()[..., None]}, None, 1),
+        ("ssdn", {"inp": rgb}, rng.randn(*rgb.shape).astype(np.float32), 3),
+    )
+    for algo, batch, e, channels in cases:
+        err = denoise_step_card_vs_cpu(algo, batch, e, channels)
+        log(f"dn train step float32 card vs CPU, {algo}, batch "
+            f"{batch['inp'].shape[0]}, {channels} channel(s): loss terms max "
+            f"rtol {err['loss']:.2e} (tol {STEP_RTOL_LOSS}), gradient "
+            f"relative L2 {err['grad l2']:.2e} (tol {STEP_GRAD_L2}), worst "
+            f"leaf {err['leaf l2']:.2e} (tol {STEP_LEAF_L2}), BatchNorm "
+            f"running stats |diff| {err['bn']:.2e} (tol {STEP_ATOL_BN}), "
+            f"params after Adam on the same gradients |diff| "
+            f"{err['adam']:.2e} (rtol {ADAM_RTOL}, atol {ADAM_ATOL})")
+    runs, launches = denoise_commands(paths, tmp, nms_cuda)
+    denoise_picker_card_vs_cpu(Picker, runs, tmp)
+    log(f"dn Picker.denoise float32 card == CPU at {DN_PICKER_SHAPE[0]}x"
+        f"{DN_PICKER_SHAPE[1]} (tol 1e-5); Picker.pick_arrays raises 'no "
+        f"detector head'")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    for algo in ("ssdn", "n2v"):
+        time_denoise_training(runs[algo], gpu, profile=algo == "ssdn")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the port on "
@@ -1541,6 +1997,11 @@ def main() -> int:
         time_training(trainer, gpu)
         log(f"phase 10 took {time.perf_counter() - t0:.1f} s")
 
+        # 11. Denoise-only training on the card.
+        t0 = time.perf_counter()
+        launches_in_denoise = denoise_phase(tmp, Picker, nms_cuda, gpu)
+        log(f"phase 11 took {time.perf_counter() - t0:.1f} s")
+
     h, w = shape
     bound_ms, bound_by = k1_bound(h, w, k, count, radius)
     big_bound_ms, big_bound_by = k1_bound(*BIG_SHAPE, BIG_CAP, count_big,
@@ -1567,6 +2028,7 @@ def main() -> int:
         "launches_per_tiled_pick": tiled_launches[0],
         "launches_per_tiled_pick_max_peaks_65536": tiled_launches[1],
         "launches_in_training": launches_in_training,
+        "launches_in_denoise_training": launches_in_denoise,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,6 +7,10 @@
     picks = picker.pick("mic.mrc")                # DataFrame: name/x/y/score
     den   = picker.denoise("mic.mrc")             # float32 H,W
 
+A denoise-only checkpoint (`train start --dn_only`) denoises; its `pick`
+raises "checkpoint has no detector head" and `process` returns None picks,
+as in the JAX package.
+
 Semantics match the JAX package's Picker: the same dense forward, the same
 greedy NMS (K1), the same 30 px border filter and x/y column order as
 `_scores.txt` (train.py:write_scores).  Checkpoints written by the JAX
@@ -242,17 +246,21 @@ class Picker:
 
     def process(self, image: ImageLike, name: Optional[str] = None,
                 standardize: bool = False):
-        """ONE dense forward -> (picks DataFrame, denoised float32 H,W)."""
+        """ONE dense forward -> (picks DataFrame, denoised float32 H,W);
+        picks is None for a denoise-only checkpoint (no detector head)."""
         table, den = self.process_table(image, name, standardize)
-        return tbl.to_frame(table), den
+        return (None if table is None else tbl.to_frame(table)), den
 
     def process_table(self, image: ImageLike, name: Optional[str] = None,
                       standardize: bool = False):
-        """`process` without pandas -> (picks table, denoised float32 H,W)."""
+        """`process` without pandas -> (picks table or None, denoised
+        float32 H,W)."""
         if name is None:
             name = self._name_for(image)
         outputs, shape = self._forward([self._load(image, standardize)])
         den = self._denoised(outputs, shape)
+        if PipelineOutput.DETECT not in outputs:
+            return None, den
         scores, coords = self._nms(self._heatmaps(outputs, shape)[0])
         return self._picks_table(name, scores, coords, shape), den
 

@@ -3,6 +3,9 @@
     python -m spr_pick_tpu_torch train start -a ssdn -n gauss \
         --noise_value const -t imgs.txt -l coords.txt --alpha 0.8 \
         --tau 0.01 --iterations 200000
+    python -m spr_pick_tpu_torch train start --dn_only -a n2v -n gauss25 \
+        -t mics/ -l none --alpha 0.8 --tau 0.01 --iterations 200000 \
+        -v val/ -vgt val_gt/
     python -m spr_pick_tpu_torch train resume hi_runs/00000-train-...
     python -m spr_pick_tpu_torch pick -m model.wt mics/ -o picks.star
     python -m spr_pick_tpu_torch eval -m model.wt -d imgs.txt -l coords.txt
@@ -10,9 +13,11 @@
 The port of `spr_pick_tpu/cli/cli.py`: the same subcommands, flags,
 defaults and outputs, plus ``--device`` (the GPU unless given).  No
 command needs pandas or PIL: tables are read and written with the `csv`
-module and PNGs with `zlib`.  `train start --dn_only` (denoise-only
-training) and ``--mesh`` above 1 (multi-GPU) are refused, naming their
-ROADMAP items.
+module and PNGs with `zlib`.  `train start --dn_only` trains the
+denoise-only algorithms on a folder of micrographs (or ssdn on a TXT
+manifest); ``-l/--alpha/--tau`` stay required there, as in the JAX
+command.  HDF5 datasets and ``--mesh`` above 1 (multi-GPU) are refused,
+naming their ROADMAP items.
 """
 
 from __future__ import annotations
@@ -45,7 +50,8 @@ def _add_device_arg(parser: argparse.ArgumentParser) -> None:
 
 def _add_shared_args(parser: argparse.ArgumentParser, start: bool):
     parser.add_argument("--train_dataset", "-t", required=start,
-                        help="Path to training dataset (TXT manifest).")
+                        help="Path to training dataset (TXT manifest, or a "
+                        "folder of images with --dn_only).")
     parser.add_argument("--alpha", "-ap", type=float, required=start,
                         help="alpha value (denoise-vs-detect blend)")
     parser.add_argument("--tau", "-tau", type=float, required=start,
@@ -108,10 +114,12 @@ def build_parser() -> argparse.ArgumentParser:
                        help="Whether the noise sigma is known / const / "
                        "var-estimated")
     start.add_argument("--dn_only", action="store_true",
-                       help="denoising only (not ported yet)")
+                       help="denoising only")
     start.add_argument("--noise_input", action="store_true",
                        help="Also add the synthetic noise to the network "
-                       "INPUT (denoise-only training; not ported yet)")
+                       "INPUT (denoise-only training, for clean benchmark "
+                       "datasets; the reference ships this switch disabled, "
+                       "noise_wrapper.py:123)")
     start.add_argument("--runs_dir", default=cfg_mod.DEFAULT_RUN_DIR)
     start.add_argument("--profile", action="store_true",
                        help="Capture a torch.profiler trace of the first "
@@ -230,6 +238,11 @@ def _apply_shared(cfg: Dict, trainer, args: Dict):
     trainer.tau = float(cfg[ConfigValue.TAU])
 
 
+def _is_hdf5(path: str) -> bool:
+    """The dataset type `cfg.infer_datasets` gives ``path``."""
+    return not os.path.isdir(path) and not path.endswith(".txt")
+
+
 def run_train(args: Dict):
     from spr_pick_tpu_torch.train import DenoiserTrainer, resume_run
 
@@ -238,11 +251,6 @@ def run_train(args: Dict):
             f"--mesh {args['mesh']}: multi-GPU training is not ported yet "
             "(ROADMAP.md §1 item 6); the port trains on one device")
     if args["train_cmd"] == "start":
-        if args["dn_only"] or args.get("noise_input"):
-            raise SystemExit(
-                "--dn_only/--noise_input: denoise-only training is not "
-                "ported yet (ROADMAP.md §1 item 4); train it with "
-                "`python -m spr_pick_tpu train start --dn_only`")
         if args["algorithm"] == "ssdn" and args.get("noise_value") is None:
             print("error: SSDN requires --noise_value", file=sys.stderr)
             sys.exit(2)
@@ -256,8 +264,21 @@ def run_train(args: Dict):
                          ("max_peaks", ConfigValue.MAX_PEAKS)):
             if args.get(arg) is not None:
                 cfg[key] = args[arg]
+        if args.get("noise_input"):
+            if not args["dn_only"]:
+                # Only the denoise data plane reads NOISE_INPUT.
+                raise SystemExit(
+                    "--noise_input only applies to denoise-only training "
+                    "(--dn_only): the joint micrograph path adds no "
+                    "synthetic noise")
+            cfg[ConfigValue.NOISE_INPUT] = True
+        if args["dn_only"] and _is_hdf5(args["train_dataset"]):
+            raise SystemExit(
+                f"{args['train_dataset']}: HDF5 training datasets are not "
+                "ported yet (ROADMAP.md §1 item 10); pass a folder of images")
         trainer = DenoiserTrainer(
-            cfg, mode="joint", alpha=args["alpha"], tau=args["tau"],
+            cfg, mode="denoise" if args["dn_only"] else "joint",
+            alpha=args["alpha"], tau=args["tau"],
             runs_dir=args["runs_dir"], profile=bool(args.get("profile")),
             device=args.get("device"),
         )

@@ -1,17 +1,24 @@
-"""The pipeline engine of the joint mode.
+"""The pipeline engine: the joint mode and the denoise-only mode.
 
 PyTorch port of `spr_pick_tpu/denoiser.py`: model building from the cfg
 and the flip-TTA fold policy (`__post_init__`, :60-143), the dense-route
-preconditions, the fused dense forward (`_apply_model_fused`, :235-264),
-the noise estimate, and `joint_pipeline` (:324-432), split here into the
+preconditions (:209-233), the dense forward with its fused route
+(`_apply_model`, :235-284), the noise estimate, and the pipelines with their `run_pipeline`
+dispatch (:540-553): `joint_pipeline` (:324-432), split here into the
 dense evaluation branch (`joint_pipeline`) and the training branch on
-crops (`joint_train_pipeline`).  The denoise-only pipelines and the stitch
-detector belong to later slices.
+crops (`joint_train_pipeline`); `ssdn_pipeline` (:434-491, one channel and
+the 3-channel diagonal or full covariance); `mse_pipeline` (:493-513, n2c,
+n2n, ssdn_u_only) and `mask_mse_pipeline` (:515-538, n2v).  Training always
+runs on crops and evaluation always densely, as every caller of the JAX
+package does.
 
-The engine owns its modules (`JointNetwork`, the `var` sigma net) and the
-learnable constant sigma on ``device``: the GPU unless the caller passes
-another (`utils/device.py`).  JAX's (trainable, static) variable split is
-the modules' parameters and BatchNorm buffers (`trainable_parameters`,
+The model is `JointNetwork` in joint mode and for ssdn (whose denoise-only
+training still runs the detector for its BatchNorm statistics), and the
+single-head `BlindspotUNet` for the mse pipelines.  The engine owns its
+modules (the model, the `var` sigma net) and the learnable constant sigma
+on ``device``: the GPU unless the caller passes another
+(`utils/device.py`).  JAX's (trainable, static) variable split is the
+modules' parameters and BatchNorm buffers (`trainable_parameters`,
 `variables`), and flax's ``mutable=["batch_stats"]`` is train mode
 (`train()`): BatchNorm then normalises with the batch's statistics and
 updates its running statistics in place.  The compute dtype comes from
@@ -25,11 +32,13 @@ from __future__ import annotations
 import os
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from spr_pick_tpu_torch import cfg as cfg_mod
 from spr_pick_tpu_torch import losses, weights
 from spr_pick_tpu_torch.models import BlindspotUNet, JointNetwork
+from spr_pick_tpu_torch.models.resnet import ResNet8
 from spr_pick_tpu_torch.ops.dense_unet import dense_blindspot_unet
 from spr_pick_tpu_torch.params import (
     ConfigValue,
@@ -52,10 +61,11 @@ def _num_output_components(channels: int, diagonal: bool) -> int:
 
 
 class Denoiser:
-    """Holds the cfg, the modules and the learnable sigma; runs the joint
-    pipeline for evaluation and for training.
+    """Holds the cfg, the modules and the learnable sigma; runs the
+    pipelines of ``mode`` ("joint" or "denoise") for evaluation and for
+    training.
 
-    ``fold_tta``: run the flip-TTA consistency forward folded into the
+    ``fold_tta`` (joint mode): run the flip-TTA consistency forward folded into the
     primary one as a 2B batch (one BatchNorm update over the fold) instead
     of a second, sequential forward (two updates, the second starting from
     the first's running statistics).  None resolves as in the JAX package
@@ -72,11 +82,8 @@ class Denoiser:
         elif fold_tta is None:
             fold_tta = cfg.get(ConfigValue.TRAIN_MINIBATCH_SIZE) != 16
         self.fold_tta = fold_tta
-        if mode != "joint":
-            raise NotImplementedError(
-                f"mode {mode!r}: the denoise-only pipelines are not ported "
-                "yet (ROADMAP.md, queue 1, denoise-only algorithms)"
-            )
+        if mode not in ("joint", "denoise"):
+            raise ValueError(f"mode {mode!r}: expected 'joint' or 'denoise'")
         c = cfg
         cfg_mod.infer(c, model_only=True)
         self.cfg = c
@@ -99,12 +106,19 @@ class Denoiser:
         dtype = _DTYPES[c.get(ConfigValue.COMPUTE_DTYPE)]
         self.compute_dtype = dtype
 
-        # Reference always builds JointNetwork in joint mode
-        # (denoiser_v2.py:99-107).
-        self.model = JointNetwork(
-            in_channels=in_ch, out_channels=out_ch, blindspot=self.blindspot,
-            dtype=dtype,
-        ).to(self.device).eval()
+        if mode == "joint" or self.pipeline == Pipeline.SSDN:
+            # The reference always builds JointNetwork (denoiser_v2.py:99-107).
+            self.model = JointNetwork(
+                in_channels=in_ch, out_channels=out_ch,
+                blindspot=self.blindspot, dtype=dtype,
+            )
+        else:
+            # Single-head U-Net for the mse / n2v pipelines.
+            self.model = BlindspotUNet(
+                in_channels=in_ch, out_channels=out_ch,
+                blindspot=self.blindspot, dtype=dtype,
+            )
+        self.model = self.model.to(self.device).eval()
         self.sigma_model = None
         if (self.pipeline == Pipeline.SSDN
                 and self.noise_value == NoiseValue.UNKNOWN_VARIABLE):
@@ -182,34 +196,52 @@ class Denoiser:
     # ------------------------------------------------------------------
 
     @property
+    def has_joint_model(self) -> bool:
+        return isinstance(self.model, JointNetwork)
+
+    @property
     def supports_rect_dense(self) -> bool:
         """Whether dense eval handles RECTANGULAR micrographs natively (the
-        two-lane fold), so the data layer can skip square padding."""
-        return not self.blindspot or self.in_channels == 1
+        two-lane fold), so the data layer can skip square padding.
+        Non-blind-spot models always do; a blind-spot model only through
+        the fused route of `JointNetwork` (denoiser.py:209-217): a
+        single-head blind-spot U-Net (ssdn_u_only) runs its own rot4
+        forward, which needs a square."""
+        if not self.blindspot:
+            return True
+        return self.has_joint_model and self.in_channels == 1
 
     def _can_fuse_dense(self, inp: torch.Tensor) -> bool:
-        """Fused dense preconditions: blind-spot model, one input channel,
-        H and W on the 32-px pad grid."""
+        """Fused dense preconditions (denoiser.py:219-233): blind-spot
+        joint model, one input channel, H and W on the 32-px pad grid."""
         return (
-            self.blindspot
+            self.has_joint_model
+            and self.blindspot
             and self.in_channels == 1
             and inp.ndim == 4
             and inp.shape[1] % 32 == 0
             and inp.shape[2] % 32 == 0
         )
 
-    def _apply_model_fused(self, inp, eps, generator) -> Tuple:
-        """Dense inference through the folded U-Net forward, then the
-        reparameterised sample and the dilated detector."""
-        out_stats = dense_blindspot_unet(self.model.denoise_branch, inp)
+    def _apply_model(self, inp, eps=None, generator=None,
+                     detect: bool = True) -> Tuple:
+        """(net_out, hm_logits) of the main model, dense, in eval mode.
+
+        A joint model's U-Net takes the folded forward when
+        `_can_fuse_dense` holds (rot4 or two-lane), its own otherwise; then
+        the reparameterised sample and the dilated detector, unless
+        ``detect`` is False (the denoise-only pipelines read no logits).
+        hm_logits is None for a single-head model."""
+        if not self.has_joint_model:
+            return self.model(inp), None
+        if self._can_fuse_dense(inp):
+            out_stats = dense_blindspot_unet(self.model.denoise_branch, inp)
+        else:
+            out_stats = self.model.denoise_branch(inp)
+        if not detect:
+            return out_stats, None
         z = self.model.sample(out_stats, eps, generator)
         return out_stats, self.model.detector(z, dense=True)
-
-    def _apply_model(self, inp, eps, generator) -> Tuple:
-        """(net_out, hm_logits) of the main model, dense, in eval mode."""
-        if self._can_fuse_dense(inp):
-            return self._apply_model_fused(inp, eps, generator)
-        return self.model(inp, True, eps, generator)
 
     def _noise_estimate(self, noisy_in: torch.Tensor) -> Optional[torch.Tensor]:
         """Raw noise estimate before softplus remap (const or var)."""
@@ -241,8 +273,32 @@ class Denoiser:
         return est
 
     # ------------------------------------------------------------------
-    # Pipeline
+    # Pipelines
     # ------------------------------------------------------------------
+
+    def run_pipeline(self, batch: Dict[str, torch.Tensor], train: bool,
+                     alpha: float = 0.0, tau: float = 0.0,
+                     generator: Optional[torch.Generator] = None, **draws,
+                     ) -> Tuple[torch.Tensor, Dict[PipelineOutput, torch.Tensor]]:
+        """The pipeline of this mode and cfg (denoiser.py:540-553):
+        training on crops (``train``) or dense evaluation.  ``draws`` are
+        the pipeline's own explicit draws (``eps``; joint training also
+        ``flip_p``, ``eps2``); those not given come from ``generator``.
+        Returns (mean loss, outputs)."""
+        if self.mode == "joint":
+            if train:
+                return self.joint_train_pipeline(batch, alpha, tau,
+                                                 generator=generator, **draws)
+            outputs = self.joint_pipeline(batch, generator=generator, **draws)
+            return torch.mean(outputs[PipelineOutput.LOSS]), outputs
+        if self.pipeline == Pipeline.SSDN:
+            return self.ssdn_pipeline(batch, train, generator=generator,
+                                      **draws)
+        if self.pipeline == Pipeline.MSE:
+            return self.mse_pipeline(batch)
+        if self.pipeline == Pipeline.MASK_MSE:
+            return self.mask_mse_pipeline(batch)
+        raise NotImplementedError("Unsupported processing pipeline")
 
     def joint_pipeline(self, batch: Dict[str, torch.Tensor],
                        eps: Optional[torch.Tensor] = None,
@@ -263,6 +319,7 @@ class Denoiser:
         zero = torch.zeros((), device=inp.device)
         outputs = self._nll_outputs(inp, net_out, batch)
         outputs.update({
+            PipelineOutput.DENOISE_LOSS: outputs[PipelineOutput.LOSS],
             PipelineOutput.DETECT_LOSS: zero,
             PipelineOutput.AUG_LOSS: zero,
             PipelineOutput.DETECT: losses.clamped_sigmoid(hm_logits),
@@ -323,36 +380,110 @@ class Denoiser:
         consis_loss = torch.mean((hm_p - hm_p_f) ** 2)
 
         outputs = self._nll_outputs(inp, net_out, batch)
-        final_loss = (alpha * outputs[PipelineOutput.DENOISE_LOSS]
-                      + (1 - alpha) * pred_loss + 0.1 * consis_loss)
+        loss_out = outputs[PipelineOutput.LOSS]
+        final_loss = (alpha * loss_out + (1 - alpha) * pred_loss
+                      + 0.1 * consis_loss)
         outputs.update({
             PipelineOutput.LOSS: final_loss,
+            PipelineOutput.DENOISE_LOSS: loss_out,
             PipelineOutput.DETECT_LOSS: pred_loss,
             PipelineOutput.AUG_LOSS: consis_loss,
             PipelineOutput.DETECT: hm_p,
         })
         return torch.mean(final_loss), outputs
 
+    def ssdn_pipeline(self, batch: Dict[str, torch.Tensor], train: bool,
+                      eps: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None,
+                      ) -> Tuple[torch.Tensor, Dict[PipelineOutput, torch.Tensor]]:
+        """Denoise-only ssdn (denoiser.py:434-491; denoiser_v2.py:598-849):
+        the NLL/PME of the U-Net's (mu | A), one channel or several.
+
+        In training the detector still runs, in train mode, on the sample
+        ``z = mu + eps * A**2`` (``eps`` given, or drawn from
+        ``generator``): the JAX package applies the whole `JointNetwork`
+        with ``mutable=["batch_stats"]``, so its BatchNorm running
+        statistics move although no loss reads the logits.  The detector's
+        parameters get no gradient.  Crops narrower than the detector's
+        receptive field (63 px) skip it: flax returns an empty map there and
+        NaN running statistics.  Evaluation runs the U-Net alone, dense (the
+        JAX program drops the unused detector).
+        """
+        inp = batch["inp"]
+        if train:
+            net_out = self.model.denoise_branch(inp)
+            if min(inp.shape[1:3]) >= ResNet8.width:
+                with torch.no_grad():
+                    self.model.detector(
+                        self.model.sample(net_out, eps, generator))
+        else:
+            net_out, _ = self._apply_model(inp, detect=False)
+        outputs = self._nll_outputs(inp, net_out, batch)
+        return torch.mean(outputs[PipelineOutput.LOSS]), outputs
+
+    def mse_pipeline(self, batch: Dict[str, torch.Tensor]
+                     ) -> Tuple[torch.Tensor, Dict[PipelineOutput, torch.Tensor]]:
+        """n2c / n2n / ssdn_u_only plain MSE of the single-head U-Net
+        (denoiser.py:493-513; denoiser_v2.py:209-226), on crops or dense:
+        the loss only where the batch has a ``ref``."""
+        cleaned = self.model(batch["inp"])
+        outputs = {PipelineOutput.IMG_DENOISED: cleaned}
+        loss = torch.zeros((), device=cleaned.device)
+        if "ref" in batch:
+            loss = losses.mse_per_item(cleaned, batch["ref"])
+            outputs[PipelineOutput.LOSS] = loss
+        return torch.mean(loss), outputs
+
+    def mask_mse_pipeline(self, batch: Dict[str, torch.Tensor]
+                          ) -> Tuple[torch.Tensor,
+                                     Dict[PipelineOutput, torch.Tensor]]:
+        """n2v masked MSE (denoiser.py:515-538; denoiser_v2.py:228-249),
+        summed over the UPS mask per item, where the batch has ``ref`` and
+        ``mask``."""
+        cleaned = self.model(batch["inp"])
+        outputs = {PipelineOutput.IMG_DENOISED: cleaned}
+        loss = torch.zeros((), device=cleaned.device)
+        if "ref" in batch and "mask" in batch:
+            loss = losses.masked_mse(cleaned, batch["ref"], batch["mask"])
+            outputs[PipelineOutput.LOSS] = loss
+        return torch.mean(loss), outputs
+
     def _nll_outputs(self, inp, net_out, batch) -> Dict:
-        """The ssdn NLL/PME part of the joint pipeline (one channel)."""
+        """The ssdn NLL/PME (denoiser.py:452-490): one channel with
+        sigma_x = A**2; several (denoise mode) with sigma_x = A^T A, A
+        diagonal or upper triangular (row-major, as ``np.triu_indices``),
+        through `full_cov_nll_pme`."""
         c = self.in_channels
-        if c != 1:
+        if c != 1 and self.mode == "joint":
             raise NotImplementedError(
                 "joint mode supports single-channel micrographs"
             )
         mu_x = net_out[..., 0:c]
-        sigma_x = net_out[..., c:self.out_channels] ** 2
+        a_c = net_out[..., c:self.out_channels]
+        known = self.noise_value == NoiseValue.KNOWN
         noise_std = self._noise_std(inp, mu_x, batch)
-        loss_map, pme_out, net_std, noise_std_out = losses.gaussian_nll_pme(
-            inp, mu_x, sigma_x, noise_std,
-            known_noise=self.noise_value == NoiseValue.KNOWN,
-        )
+        if c == 1:
+            loss_map, pme_out, net_std, noise_std_out = \
+                losses.gaussian_nll_pme(inp, mu_x, a_c ** 2, noise_std,
+                                        known_noise=known)
+        else:
+            if self.cfg[ConfigValue.DIAGONAL_COVARIANCE]:
+                sigma_x = torch.diag_embed(a_c ** 2)
+            else:
+                tri = a_c.new_zeros(a_c.shape[:-1] + (c, c))
+                rows, cols = np.triu_indices(c)
+                tri[..., rows, cols] = a_c
+                sigma_x = torch.einsum("...ji,...jk->...ik", tri, tri)
+            loss_map, pme_out, net_std, noise_std_out = \
+                losses.full_cov_nll_pme(
+                    inp, mu_x, sigma_x,
+                    torch.broadcast_to(noise_std, inp.shape),
+                    known_noise=known)
         loss_out = loss_map.reshape(loss_map.shape[0], -1).mean(1, keepdim=True)
         return {
             PipelineOutput.IMG_MU: mu_x,
             PipelineOutput.IMG_DENOISED: pme_out,
             PipelineOutput.LOSS: loss_out,
-            PipelineOutput.DENOISE_LOSS: loss_out,
             PipelineOutput.NOISE_STD_DEV: noise_std_out,
             PipelineOutput.MODEL_STD_DEV: net_std,
         }

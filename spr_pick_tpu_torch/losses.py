@@ -1,16 +1,16 @@
-"""Loss functions: clamped sigmoid, ssdn NLL/PME, the noise-estimate
-remap, the PU losses, focal losses and the JS divergence.
+"""Loss functions: clamped sigmoid, ssdn NLL/PME (one channel and the
+3-channel full covariance), the noise-estimate remap, the PU losses, focal
+losses, the JS divergence and the n2c/n2n/n2v mean squared errors.
 
-PyTorch port of `spr_pick_tpu/losses.py:18-55,100-321` (parity:
-`spr_pick/denoiser_v2.py:32-34,399-402,448-462` and
+PyTorch port of `spr_pick_tpu/losses.py` (parity:
+`spr_pick/denoiser_v2.py:32-34,209-249,399-402,448-462,778-823` and
 `spr_pick/utils/losses.py`).  The reference's dynamic ``N = #unlabeled`` in
 the PU generalised-expectation penalty is handled, as in the JAX package,
 by masking over a static ``0..B`` count vector, and
 ``scipy.stats.binom.logpmf`` is re-derived from ``lgamma``.  Masked
 branches go through `torch.where`, whose backward sends a zero gradient to
 the branch it did not select, so a masked ``-inf`` never reaches a
-gradient.  The mse terms and the 3-channel ``full_cov_nll_pme`` belong to
-the denoise-only slice.
+gradient.
 """
 
 from __future__ import annotations
@@ -54,6 +54,50 @@ def gaussian_nll_pme(
     noise_std_out = torch.broadcast_to(noise_std, noisy_in.shape)
     if not known_noise:
         loss_out = loss_out - 0.05 * noise_std  # balance regularisation
+    return loss_out, pme_out, net_std_out, noise_std_out
+
+
+def full_cov_nll_pme(
+    noisy_in: torch.Tensor,
+    mu_x: torch.Tensor,
+    sigma_x: torch.Tensor,
+    noise_std: torch.Tensor,
+    known_noise: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Multi-channel (3 for RGB) full-covariance NLL and posterior mean.
+
+    Parity: `spr_pick_tpu/losses.py:58-97` (denoiser_v2.py:778-823).
+    noisy_in, mu_x: (B, H, W, C); sigma_x: (B, H, W, C, C) = A^T A;
+    noise_std: broadcastable to (B, H, W, C), the per-channel s.d.  The
+    per-pixel CxC inverses and determinants are float32
+    ``torch.linalg`` calls; three inverses take ``+1e-6 I`` and the
+    determinants are clipped at 0, as in the JAX package.
+    Returns (loss_map (B, H, W), pme (B, H, W, C), net_std, noise_std).
+    """
+    c = noisy_in.shape[-1]
+    eye = torch.eye(c, dtype=noisy_in.dtype, device=noisy_in.device)
+    i_eps = eye * 1e-6
+
+    sigma_n = (noise_std ** 2)[..., None] * eye  # BHWCC diagonal
+    sigma_y = sigma_x + sigma_n
+
+    sigma_y_inv = torch.linalg.inv(sigma_y)
+    diff = noisy_in - mu_x
+    vtmv = torch.einsum("...i,...ij,...j->...", diff, sigma_y_inv, diff)
+    dets = torch.clamp(torch.linalg.det(sigma_y), min=0.0)
+    loss_out = 0.5 * torch.log(dets) + 0.5 * vtmv
+    if not known_noise:
+        loss_out = loss_out - 0.1 * torch.mean(noise_std, dim=-1)
+
+    sigma_x_inv = torch.linalg.inv(sigma_x + i_eps)
+    sigma_n_inv = torch.linalg.inv(sigma_n + i_eps)
+    pme_c1 = torch.linalg.inv(sigma_x_inv + sigma_n_inv + i_eps)
+    pme_c2 = (torch.einsum("...ij,...j->...i", sigma_x_inv, mu_x)
+              + torch.einsum("...ij,...j->...i", sigma_n_inv, noisy_in))
+    pme_out = torch.einsum("...ij,...j->...i", pme_c1, pme_c2)
+
+    net_std_out = torch.clamp(torch.linalg.det(sigma_x), min=0.0) ** (1.0 / 6.0)
+    noise_std_out = torch.clamp(torch.linalg.det(sigma_n), min=0.0) ** (1.0 / 6.0)
     return loss_out, pme_out, net_std_out, noise_std_out
 
 
@@ -257,3 +301,23 @@ def js_div_loss_2d(inp: torch.Tensor, target: torch.Tensor,
     if reduction == "none":
         return js
     return torch.mean(js) if reduction == "mean" else torch.sum(js)
+
+
+# ---------------------------------------------------------------------------
+# n2c / n2n / n2v mean squared errors
+# ---------------------------------------------------------------------------
+
+def masked_mse(pred: torch.Tensor, target: torch.Tensor,
+               mask: torch.Tensor) -> torch.Tensor:
+    """Squared error on the masked (UPS-manipulated) pixels, summed per
+    item -> (B, 1).  Parity: `spr_pick_tpu/losses.py:324-334` (the dense 0/1
+    mask of the reference's coordinate list, n2v_loss.py:6-17)."""
+    sq = (target - pred) ** 2 * mask
+    return torch.sum(sq.reshape(sq.shape[0], -1), dim=1, keepdim=True)
+
+
+def mse_per_item(pred: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """Per-item mean squared error -> (B, 1) (n2c/n2n).  Parity:
+    `spr_pick_tpu/losses.py:337-340` (denoiser_v2.py:209-226)."""
+    sq = (pred - ref) ** 2
+    return torch.mean(sq.reshape(sq.shape[0], -1), dim=1, keepdim=True)

@@ -26,16 +26,19 @@ from spr_pick_tpu_torch.models.unet import BlindspotUNet
 
 
 class Detector(nn.Module):
-    """BatchNorm(1ch) -> ResNet8(bn=True) -> 1x1 classifier.
+    """BatchNorm -> ResNet8(bn=True) -> 1x1 classifier.
 
     Parity: joint_network_v2.py:543-561.  Returns float32 logits, NHWC.
+    ``in_channels`` is the channel count of its input ``z`` (flax infers
+    it): 1 for micrographs, 3 for a 3-channel denoiser's sample.
     """
 
-    def __init__(self, dtype: Optional[torch.dtype] = None):
+    def __init__(self, dtype: Optional[torch.dtype] = None,
+                 in_channels: int = 1):
         super().__init__()
         self.dtype = dtype
-        self.input_bn = nn.BatchNorm2d(1, eps=BN_EPS)
-        self.features = ResNet8(bn=True, dtype=dtype)
+        self.input_bn = nn.BatchNorm2d(in_channels, eps=BN_EPS)
+        self.features = ResNet8(bn=True, dtype=dtype, in_channels=in_channels)
         self.classifier = LinearClassifier(self.features.latent_dim)
 
     def forward(self, x: torch.Tensor, dense: bool = False) -> torch.Tensor:
@@ -65,7 +68,7 @@ class JointNetwork(nn.Module):
             in_channels=in_channels, out_channels=out_channels,
             blindspot=blindspot, levels=5, dtype=dtype,
         )
-        self.detector = Detector(dtype=dtype)
+        self.detector = Detector(dtype=dtype, in_channels=in_channels)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.denoise_branch.reset_parameters(generator)

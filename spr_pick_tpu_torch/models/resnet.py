@@ -133,6 +133,8 @@ class ResNet8(nn.Module):
     """Topaz ResNet8: RF width 63, total stride 4.
 
     Parity: feature_extractor.py:102-144 (pooling=None path: stride=2).
+    ``in_channels`` is what flax infers from the input: 1 for a
+    micrograph, 3 for the sample of a 3-channel denoiser.
     """
 
     # Receptive field of the (kernel, stride) stack (7,2) (7,1) (7,2) (7,1)
@@ -141,12 +143,12 @@ class ResNet8(nn.Module):
     width = 63
 
     def __init__(self, units: Sequence[int] = (32, 64, 128), bn: bool = True,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, in_channels: int = 1):
         super().__init__()
         u = units
         self.latent_dim = u[2]
-        self.layer0 = BasicConv2d(1, u[0], 7, stride=2, bn=bn, dense_factor=1,
-                                  dtype=dtype)
+        self.layer0 = BasicConv2d(in_channels, u[0], 7, stride=2, bn=bn,
+                                  dense_factor=1, dtype=dtype)
         self.layer1 = ResidA(u[0], u[0], u[0], dilation=2, bn=bn,
                              dense_factor=2, dtype=dtype)
         self.layer2 = ResidA(u[0], u[0], u[1], dilation=2, stride=2, bn=bn,

@@ -3,7 +3,9 @@
 Port of `spr_pick_tpu/steps.py`: `make_optimizer` (:31-35), the train
 state (:24-28, `init_state` :38-47), one forward/backward/Adam/BatchNorm
 update (`_grad_update`, `train_step`, :50-111), the host-facing metrics
-(`_collect_metrics`, :83-98) and the dense eval step (:338-351).
+(`_collect_metrics`, :83-98) and the dense eval step (:338-351).  Both
+steps go through `Denoiser.run_pipeline`, so they serve the joint mode and
+the four denoise-only pipelines alike.
 
 PyTorch runs eagerly, so there is nothing to compile: the trainer calls
 `train_step` once a step in a Python loop.  The JAX package's K-step
@@ -111,12 +113,14 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], lr: float,
                ) -> Dict[str, torch.Tensor]:
     """One forward/backward/Adam/BatchNorm update, in place on ``state``
     (`_grad_update`, steps.py:50-80), the pipeline's draws from
-    ``generator``.  Returns the step's metrics on the device."""
+    ``generator``.  A parameter the loss does not reach (the detector of a
+    denoise-only ssdn) gets no gradient, which Adam counts as zero.
+    Returns the step's metrics on the device."""
     den = state.denoiser
     for p in state.opt.params:
         p.grad = None
-    loss, outputs = den.joint_train_pipeline(batch, alpha, tau,
-                                             generator=generator)
+    loss, outputs = den.run_pipeline(batch, True, alpha, tau,
+                                     generator=generator)
     loss.backward()
     state.opt.step(lr)
     state.step += 1
@@ -128,7 +132,9 @@ def eval_step(denoiser: Denoiser, batch: Dict[str, torch.Tensor],
               generator: Optional[torch.Generator] = None,
               ) -> Dict[PipelineOutput, torch.Tensor]:
     """Run the dense eval pipeline (no grads, no BN update) on ``batch``;
-    the sample noise is ``eps``, or is drawn from ``generator``, or from a
-    generator seeded with 0."""
+    a joint model's sample noise is ``eps``, or is drawn from
+    ``generator``, or from a generator seeded with 0."""
+    draws = {} if eps is None else {"eps": eps}
     with torch.inference_mode():
-        return denoiser.joint_pipeline(batch, eps=eps, generator=generator)
+        return denoiser.run_pipeline(batch, False, generator=generator,
+                                     **draws)[1]

@@ -1,28 +1,39 @@
 """Training orchestration: run dirs, the loop, intervals, snapshots and
 validation.
 
-The PyTorch port of `spr_pick_tpu/train.py` (`DenoiserTrainer`, joint mode
-on TXT data, and `resume_run`; parity: `spr_pick/train.py`).  A step is
-`steps.train_step` on a batch from the data plane
-(`data/micrograph.py:DevicePatchPipeline`, or `HostPatchPipeline` past the
-device budget), with metrics kept on the device until a print, eval or
-snapshot boundary.  Intervals fire on crossings of their multiples, not
-exact hits (`interval_due`), so a batch that does not divide an interval
-still fires every boundary.  Validation is the dense evaluation pass of
-`eval.py:EvaluatorBase` with the modules in eval mode, its picks through
-K1; snapshots are `training_jt/model_{iter:08d}.training` in the JAX
-package's format, and a completed run writes `final-<config>.wt`.
-SIGTERM/SIGINT snapshot and stop at the next boundary, without a
-`final-*.wt`.
+The PyTorch port of `spr_pick_tpu/train.py` (`DenoiserTrainer` and
+`resume_run`; parity: `spr_pick/train.py`), in joint mode and in
+denoise-only mode.  A step is `steps.train_step` on a batch from the data
+plane, with metrics kept on the device until a print, eval or snapshot
+boundary:
 
-Randomness: the sampler and the flips are numpy `RandomState`s, as in the
-JAX package, so they draw the same indices and flips.  The pipeline's sample
-noise and flip draw come from a `torch.Generator` derived from the JAX
-key's value (``PRNGKey(seed + 1)``); its state is saved in every
-`.training`, so a resumed run draws what the uninterrupted one would.
-Validation draws its noise from a generator seeded with the cfg seed at
-each pass.  The device is the GPU unless the caller passes another
-(`utils/device.py`).
+  * a TXT manifest with coordinates (joint training; also denoise-only
+    ssdn) takes `data/micrograph.py:DevicePatchPipeline`, or
+    `HostPatchPipeline` past the device budget, fed by the sampler;
+  * a folder of micrographs (denoise-only) takes
+    `data/patches.py:DeviceDenoisePipeline`, or `DenoisePatchPipeline` past
+    the budget or under ``SPR_HOST_DENOISE_DATA=1``, each drawing its own
+    batch.
+
+Intervals fire on crossings of their multiples, not exact hits
+(`interval_due`), so a batch that does not divide an interval still fires
+every boundary.  Validation is the dense evaluation pass of
+`eval.py:EvaluatorBase` with the modules in eval mode: a joint model's
+picks go through K1, a denoise-only model writes images and PSNR only.
+Snapshots are `training_jt/` (joint) or `training_dn/` (denoise)
+`model_{iter:08d}.training` in the JAX package's format, and a completed
+run writes `final-<config>.wt`.  SIGTERM/SIGINT snapshot and stop at the
+next boundary, without a `final-*.wt`.
+
+Randomness: the sampler, the flips and the host denoise plane are numpy
+`RandomState`s, as in the JAX package, so they draw the same indices,
+crops and noise.  The pipeline's sample noise and flip draw come from a
+`torch.Generator` derived from the JAX key's value (``PRNGKey(seed + 1)``),
+and the device denoise plane draws from its own generator; their states
+are saved in every `.training`, so a resumed run draws what the
+uninterrupted one would.  Validation draws its noise from a generator
+seeded with the cfg seed at each pass.  The device is the GPU unless the
+caller passes another (`utils/device.py`).
 """
 
 from __future__ import annotations
@@ -40,9 +51,12 @@ import torch
 
 from spr_pick_tpu_torch import cfg as cfg_mod
 from spr_pick_tpu_torch import weights
+from spr_pick_tpu_torch.data.folder import UnlabelledImageFolderDataset
 from spr_pick_tpu_torch.data.micrograph import (DevicePatchPipeline,
                                                 HostPatchPipeline,
                                                 MicrographDataset)
+from spr_pick_tpu_torch.data.patches import (DenoisePatchPipeline,
+                                             DeviceDenoisePipeline)
 from spr_pick_tpu_torch.data.sampler import StratifiedCoordinateSampler
 from spr_pick_tpu_torch.denoiser import Denoiser
 from spr_pick_tpu_torch.eval import EvaluatorBase
@@ -96,11 +110,8 @@ class DenoiserTrainer(EvaluatorBase):
                  runs_dir: str = DEFAULT_RUN_DIR, run_dir: Optional[str] = None,
                  profile: bool = False, device=None):
         super().__init__(runs_dir, run_dir=run_dir, device=device)
-        if mode != "joint":
-            raise NotImplementedError(
-                f"mode {mode!r}: denoise-only training is not ported yet "
-                "(ROADMAP.md §1 item 4)"
-            )
+        if mode not in ("joint", "denoise"):
+            raise ValueError(f"mode {mode!r}: expected 'joint' or 'denoise'")
         self.profile = profile
         self.cfg = cfg
         self.mode = mode
@@ -198,15 +209,12 @@ class DenoiserTrainer(EvaluatorBase):
     # ------------------------------------------------------------------
 
     def train_data(self):
-        """Training dataset, sampler and patch pipeline (train.py:279-327;
-        TXT manifests with coordinates)."""
+        """Training dataset, sampler (None: the pipeline draws its own
+        batch) and patch pipeline (train.py:279-374)."""
         cfg = self.cfg
-        if cfg[ConfigValue.TRAIN_DATASET_TYPE] != DatasetType.TXT:
-            raise NotImplementedError(
-                "joint training needs particle coordinates (TXT manifest); "
-                "folder/hdf5 datasets support denoise-only training, which "
-                "is not ported yet (ROADMAP.md §1 item 4)"
-            )
+        dtype = cfg[ConfigValue.TRAIN_DATASET_TYPE]
+        if dtype != DatasetType.TXT:
+            return self._denoise_train_data(dtype)
         patch = cfg[ConfigValue.TRAIN_PATCH_SIZE]
         dataset = MicrographDataset(
             cfg[ConfigValue.TRAIN_DATA_PATH], cfg[ConfigValue.TRAIN_LABEL_PATH],
@@ -231,6 +239,39 @@ class DenoiserTrainer(EvaluatorBase):
             pipeline = HostPatchPipeline(dataset, crop=patch,
                                          device=self.device)
         return dataset, sampler, pipeline
+
+    def _denoise_train_data(self, dtype):
+        """The folder route of denoise-only training (train.py:329-374):
+        the device plane within the budget, else, or under
+        ``SPR_HOST_DENOISE_DATA=1``, the host plane."""
+        if self.mode != "denoise":
+            raise NotImplementedError(
+                "joint training needs particle coordinates (TXT manifest); "
+                "folder datasets support denoise-only training (--dn_only)")
+        if dtype == DatasetType.HDF5:
+            raise NotImplementedError(
+                "HDF5 training datasets are not ported yet (ROADMAP.md §1 "
+                "item 10): pass a folder of images")
+        cfg = self.cfg
+        base = UnlabelledImageFolderDataset(
+            cfg[ConfigValue.TRAIN_DATA_PATH], recursive=True,
+            channels=cfg[ConfigValue.IMAGE_CHANNELS])
+        kwargs = dict(
+            patch=cfg[ConfigValue.TRAIN_PATCH_SIZE],
+            algorithm=cfg[ConfigValue.ALGORITHM],
+            noise_style=cfg[ConfigValue.NOISE_STYLE],
+            seed=int(cfg.get(ConfigValue.SEED, 0)),
+            noise_input=bool(cfg.get(ConfigValue.NOISE_INPUT, False)),
+            device=self.device,
+        )
+        if os.environ.get("SPR_HOST_DENOISE_DATA", "0") != "1":
+            try:
+                return base, None, DeviceDenoisePipeline(
+                    base, max_bytes=_device_data_budget(), **kwargs)
+            except ValueError as exc:
+                logger.warning("device denoise data plane unavailable (%s); "
+                               "falling back to host batch prep", exc)
+        return base, None, DenoisePatchPipeline(base, **kwargs)
 
     def set_train_data(self, path: str):
         self.cfg[ConfigValue.TRAIN_DATA_PATH] = path
@@ -353,10 +394,9 @@ class DenoiserTrainer(EvaluatorBase):
                 if iteration >= self.cfg[ConfigValue.ITERATIONS]:
                     break
                 for _ in range(self._chunk_steps(iteration, batch_size)):
-                    batch = self.patch_pipeline.batch(
-                        self.train_sampler.sample_batch(batch_size))
                     pending_metrics.append(train_step(
-                        self.train_state, batch, self.learning_rate,
+                        self.train_state, self.next_batch(batch_size),
+                        self.learning_rate,
                         self.alpha, self.tau, generator=self._train_generator,
                     ))
                     self.state[StateValue.ITERATION] += batch_size
@@ -372,6 +412,14 @@ class DenoiserTrainer(EvaluatorBase):
                           subdir="", model_only=True)
         finally:
             restore_handlers()
+
+    def next_batch(self, batch_size: int) -> Dict[str, torch.Tensor]:
+        """The data plane's next batch: the sampler's indices, or the
+        pipeline's own draw where there is no sampler (folders)."""
+        if self.train_sampler is None:
+            return self.patch_pipeline.batch(batch_size)
+        return self.patch_pipeline.batch(
+            self.train_sampler.sample_batch(batch_size))
 
     def _chunk_steps(self, iteration: int, batch_size: int) -> int:
         """Steps until the next eval/print/snapshot/end boundary
@@ -471,9 +519,11 @@ class DenoiserTrainer(EvaluatorBase):
 
     def snapshot(self, output_name: str = None, subdir: str = None,
                  model_only: bool = False):
-        """Parity: train.py:1366-1399."""
+        """Parity: train.py:1366-1399: `training_jt`/`model_jt` in joint
+        mode, `training_dn`/`model_dn` in denoise mode."""
         if subdir is None:
-            subdir = "model_jt" if model_only else "training_jt"
+            suffix = "jt" if self.mode == "joint" else "dn"
+            subdir = ("model_" if model_only else "training_") + suffix
         output_dir = os.path.join(self.run_dir_path, subdir)
         os.makedirs(output_dir, exist_ok=True)
         iteration = self.state[StateValue.ITERATION]
@@ -495,7 +545,8 @@ class DenoiserTrainer(EvaluatorBase):
         )
 
     def data_state_dict(self):
-        """Sampler position + augment RNGs (train.py:1401-1419)."""
+        """Sampler position + augment and noise RNGs (train.py:1401-1419);
+        a denoise plane has no sampler."""
         state = {}
         if self.train_sampler is not None:
             state["sampler"] = self.train_sampler.state_dict()

@@ -176,14 +176,16 @@ def test_expand_pick_inputs_dedups_like_jax(tmp_path):
 
 
 def test_train_is_refused():
-    """Joint training is ported (tests/test_torch_cli_train.py); `train`
-    still refuses denoise-only runs, naming their ROADMAP item, and a
-    command line without its required flags."""
-    with pytest.raises(SystemExit, match="ROADMAP.md §1 item 4"):
+    """Joint and denoise-only training are ported
+    (tests/test_torch_cli_train.py, tests/test_torch_cli_denoise.py);
+    `train` still refuses ``--noise_input`` without ``--dn_only``, as the
+    JAX command does, and a command line without its required flags."""
+    with pytest.raises(SystemExit, match="only applies to denoise-only"):
         port_cli.start(["train", "start", "-a", "ssdn", "-n", "gauss",
-                        "-t", "imgs.txt", "-l", "coords.txt", "--alpha",
-                        "0.8", "--tau", "0.01", "--iterations", "8",
-                        "--dn_only", "--device", "cpu"])
+                        "--noise_value", "const", "-t", "imgs.txt", "-l",
+                        "coords.txt", "--alpha", "0.8", "--tau", "0.01",
+                        "--iterations", "8", "--noise_input", "--device",
+                        "cpu"])
     with pytest.raises(SystemExit):
         port_cli.start(["train", "start", "-a", "ssdn"])
 

@@ -3,7 +3,8 @@ reading what they write.
 
 The port's command trains on the CPU only when asked (``--device cpu``);
 without the flag and without a GPU both subcommands raise, and
-``--dn_only`` and ``--mesh 2`` are refused naming their ROADMAP items.  A
+``--dn_only`` on an HDF5 dataset and ``--mesh 2`` are refused naming their
+ROADMAP items.  A
 run started by the command (bf16 compute, the default, batch 4, 8
 iterations, a snapshot at 4) is resumed by the command from its snapshot
 at 4 and must end on the same weights, bit for bit (one process, one CPU).
@@ -100,7 +101,7 @@ def test_without_a_gpu_both_commands_raise(dataset, run, tmp_path,
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--dn_only"], "ROADMAP.md §1 item 4"),
+    (["--dn_only", "-t", "train.h5"], "ROADMAP.md §1 item 10"),
     (["--mesh", "2"], "ROADMAP.md §1 item 6"),
 ])
 def test_refusals(dataset, tmp_path, extra, match):

@@ -175,3 +175,37 @@ def test_k1_largest_maps(cuda, shape, edge):
     maps = _planted(np.random.RandomState(6), *shape, cuda)
     _equal_to_plain(maps, 15, 0.02)
 
+
+# ---------------------------------------------------------------------------
+# The denoise data plane's device functions (no kernel of their own: torch
+# ops that must give the CPU's values for the same draws)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(64, 64), (30, 37)])
+def test_manipulate_torch_on_the_card_equals_the_cpu(cuda, shape):
+    from spr_pick_tpu_torch.data import n2v
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.rand((16,) + shape, generator=g)
+    draws = [torch.rand((16,) + n2v.grid_shape(*shape), generator=g)
+             for _ in range(3)]
+    want = n2v.manipulate_torch(x, *draws)
+    got = n2v.manipulate_torch(x.to(cuda), *(d.to(cuda) for d in draws))
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("style", ["gauss25", "gauss10_50", "poisson10_50"])
+def test_add_style_torch_on_the_card_equals_the_cpu(cuda, style):
+    from spr_pick_tpu_torch.data.noise import add_style_torch
+
+    g = torch.Generator().manual_seed(1)
+    x = torch.rand((16, 64, 64), generator=g)
+    u = torch.rand((16, 1, 1), generator=g)
+    n = (torch.randn(x.shape, generator=g) if style.startswith("gauss")
+         else torch.poisson(torch.ones(x.shape), generator=g))
+    want = add_style_torch(x, style, uniform=u, noise=n)
+    got = add_style_torch(x.to(cuda), style, uniform=u.to(cuda),
+                          noise=n.to(cuda))
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)

@@ -53,7 +53,10 @@ def test_port_imports_no_jax_in_a_fresh_process():
             "spr_pick_tpu_torch.data.sampler",
             "spr_pick_tpu_torch.utils.schedule",
             "spr_pick_tpu_torch.utils.tfevents",
-            "spr_pick_tpu_torch.utils.profiling"} <= mods
+            "spr_pick_tpu_torch.utils.profiling",
+            "spr_pick_tpu_torch.data.noise", "spr_pick_tpu_torch.data.n2v",
+            "spr_pick_tpu_torch.data.noisy", "spr_pick_tpu_torch.data.crop",
+            "spr_pick_tpu_torch.data.patches"} <= mods
 
 
 _FORBIDDEN = re.compile(
@@ -93,6 +96,26 @@ def test_trainer_defaults_to_the_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DenoiserTrainer(None)
     assert DenoiserTrainer(None, device="cpu").device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("algorithm", ["ssdn", "n2v"])
+def test_denoise_mode_defaults_to_the_gpu(monkeypatch, algorithm):
+    """`Denoiser(cfg, mode="denoise")` and `DenoiserTrainer(cfg,
+    mode="denoise")` raise without a card and run with ``device="cpu"``."""
+    from spr_pick_tpu_torch.train import DenoiserTrainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    c = cfg.base()
+    c[ConfigValue.ALGORITHM] = NoiseAlgorithm(algorithm)
+    c[ConfigValue.NOISE_VALUE] = NoiseValue.UNKNOWN_CONSTANT
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Denoiser(c, mode="denoise")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DenoiserTrainer(c, mode="denoise")
+    den = Denoiser(c, mode="denoise", device="cpu")
+    assert den.device == torch.device("cpu")
+    assert den.has_joint_model == (algorithm == "ssdn")
+    assert DenoiserTrainer(c, mode="denoise", device="cpu").mode == "denoise"
 
 
 def test_k1_wrapper_sends_cpu_tensors_to_the_plain_version():
