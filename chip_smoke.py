@@ -99,7 +99,22 @@ script then exits nonzero and prints no result):
      (n2v's output, ssdn's U-Net outputs within 1e-5 relative L2, ssdn's
      posterior mean against its formula) and `pick_arrays` refused;
      timings: samples/s for ssdn and n2v, a step's parts, the validation
-     pass and three traced steps.
+     pass and three traced steps;
+ 12. reference checkpoints and data parallelism: the phase-1 weights
+     written in the reference's PyTorch format (zip and legacy
+     ``torch.save``, reference names, the cfg under ``spr_pick.params``)
+     load to the port `.wt`'s trees; ``Picker`` on the card picks the same
+     list from the zip file as from the port `.wt` (bf16: a reference cfg
+     records no compute dtype), K1 launches and equals its plain version on
+     that heatmap, and ``pick -m`` and ``eval -m`` take the files; then
+     data parallelism at D = min(2, cards): at D = 1 an NCCL group of one
+     runs the float32 joint step at batch 16, which must equal the one-card
+     step, and an in-process trainer in that group validates through K1
+     (K1 == plain on every `_scores.txt`); at D >= 2 the D-rank step (one
+     process a card) equals the one-card step, the ranks hold identical
+     parameters, and the tiled 4096x5760 pick over D cards gives the
+     one-card picks; samples/s at D and at 1.  Phases 10 and 11 run their
+     commands with ``--mesh 1``.
 
 The weights are random, made from a seed.  The detector's 1x1 classifier
 takes the absolute value of its random weights and a scale and bias fitted
@@ -1175,7 +1190,8 @@ def training_commands(paths, tmp: str, Picker) -> dict:
         "-v", paths["val_images"], "-vl", paths["val_coords"], "--alpha",
         "0.8", "--tau", "0.01", "--iterations", str(TRAIN_ITERS),
         "--checkpoint_interval", str(half), "--eval_interval", str(half),
-        "--print_interval", str(TRAIN_ITERS // 4), "--runs_dir", runs)}
+        "--print_interval", str(TRAIN_ITERS // 4), "--runs_dir", runs,
+        "--mesh", "1")}
     (name,) = os.listdir(runs)
     run = os.path.join(runs, name)
     resumed = os.path.join(tmp, "train_runs_resumed", name)
@@ -1223,11 +1239,13 @@ def training_commands(paths, tmp: str, Picker) -> dict:
     return secs
 
 
-def k1_in_training(paths, tmp: str, nms_cuda, radius: int):
+def k1_in_training(paths, tmp: str, nms_cuda, radius: int, mesh=None):
     """An in-process DenoiserTrainer on the card, bf16 at the defaults, 64
     iterations with a validation pass every 32: K1's launches in the run,
     and each validation's `_scores.txt` against K1's plain version on the
-    same heatmap.  Returns (trainer, launches, validations)."""
+    same heatmap.  With a ``mesh`` it is one rank of a data-parallel run:
+    the rank that owns the validation micrograph picks it.  Returns
+    (trainer, launches)."""
     from spr_pick_tpu_torch.params import ConfigValue
     from spr_pick_tpu_torch.train import DenoiserTrainer
 
@@ -1236,7 +1254,7 @@ def k1_in_training(paths, tmp: str, nms_cuda, radius: int):
     c[ConfigValue.EVAL_INTERVAL] = 32
     c[ConfigValue.PRINT_INTERVAL] = 32
     c[ConfigValue.SNAPSHOT_INTERVAL] = 64
-    t = DenoiserTrainer(c, alpha=0.8, tau=0.01,
+    t = DenoiserTrainer(c, alpha=0.8, tau=0.01, mesh=mesh,
                         runs_dir=os.path.join(tmp, "inproc"))
     t.set_train_data(paths["train_images"])
     t.set_train_label(paths["train_coords"])
@@ -1254,7 +1272,8 @@ def k1_in_training(paths, tmp: str, nms_cuda, radius: int):
     nms_cuda.greedy_nms_cuda.launches = 0
     t.train()
     launches = nms_cuda.greedy_nms_cuda.launches
-    if launches < 1 or len(maps) != 3:
+    passes = 3 if mesh is None or mesh.is_main else 0
+    if (launches < 1) == bool(passes) or len(maps) != passes:
         raise AssertionError(f"training launched K1 {launches} times over "
                              f"{len(maps)} validations")
     for hm, path in maps:
@@ -1271,10 +1290,12 @@ def k1_in_training(paths, tmp: str, nms_cuda, radius: int):
         if got != want or not got:
             raise AssertionError(f"validation picks {path}: {len(got)} rows, "
                                  f"K1's plain version {len(want)}")
-    log(f"k1 in training: {launches} launches over {len(maps)} validation "
-        f"passes; each pass's _scores.txt equals K1's plain version on its "
-        f"heatmap ({', '.join(str(len(read_rows(p)) - 1) for _, p in maps)} "
-        f"rows)")
+    if passes:
+        log(f"k1 in training{'' if mesh is None else ' (data parallel)'}: "
+            f"{launches} launches over {len(maps)} validation passes; each "
+            f"pass's _scores.txt equals K1's plain version on its heatmap "
+            f"({', '.join(str(len(read_rows(p)) - 1) for _, p in maps)} "
+            f"rows)")
     return t, launches
 
 
@@ -1528,7 +1549,7 @@ def denoise_commands(paths, tmp: str, nms_cuda) -> dict:
                    "-t", paths["train"], "-l", "none", "--alpha", "0.8",
                    "--tau", "0.01", "--iterations", str(iters),
                    "--checkpoint_interval", str(half), "--print_interval",
-                   str(half), "--runs_dir", d, *extra])
+                   str(half), "--runs_dir", d, "--mesh", "1", *extra])
         secs[algo] = time.perf_counter() - t0
         (name,) = os.listdir(d)
         runs[algo] = os.path.join(d, name)
@@ -1764,6 +1785,274 @@ def denoise_phase(tmp: str, Picker, nms_cuda, gpu: str) -> int:
     for algo in ("ssdn", "n2v"):
         time_denoise_training(runs[algo], gpu, profile=algo == "ssdn")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: reference checkpoints and data parallelism
+# ---------------------------------------------------------------------------
+
+DDP_STEPS = 5        # bf16 train steps a timed window, as in phase 10
+# D ranks against one, float32 with TF32 off.  At D = 1 (an NCCL group of
+# one) the step is the one-rank step, so it is held to the CPU test's
+# tolerances (tests/test_torch_ddp.py); at D >= 2 each card runs batch
+# 16 / D, which cuDNN may run with other algorithms, so the step is held
+# to phase 10's card-against-CPU tolerances.
+DDP_TOL = {1: dict(loss=1e-6, aug=1e-7, grad_l2=1e-5, bn=1e-6),
+           2: dict(loss=STEP_RTOL_LOSS, aug=STEP_ATOL_AUG,
+                   grad_l2=STEP_GRAD_L2, bn=STEP_ATOL_BN)}
+
+
+def reference_phase(tmp: str, paths, mic: str, Picker, nms_cuda,
+                    radius: int):
+    """12a.  The phase-1 weights written in the reference's format (zip and
+    legacy ``torch.save``, reference names, cfg under ``spr_pick.params``)
+    must load to the same trees; the Picker must pick from the zip file on
+    the card what it picks from the port `.wt` (bf16, the compute dtype a
+    reference cfg loads with: it records none), through K1, which must
+    equal its plain version on that heatmap; `pick` and `eval -m` must take
+    the files.  Returns (K1's launches in the reference pick, max error)."""
+    from spr_pick_tpu_torch import compat
+    from spr_pick_tpu_torch.cli import cli
+    from spr_pick_tpu_torch.params import ConfigValue
+    from spr_pick_tpu_torch.utils import checkpoint as ckpt
+
+    port = ckpt.load(paths["zero_bf16"])
+    ref = {}
+    for form in ("zip", "legacy"):
+        ref[form] = os.path.join(tmp, f"reference_{form}.wt")
+        compat.save_reference_checkpoint(
+            ref[form], port["trainable"], port["static"], port["cfg"],
+            legacy=form == "legacy")
+        got = ckpt.load(ref[form])
+        for tree in ("trainable", "static"):
+            a, b = dict(tree_leaves(got[tree])), dict(tree_leaves(port[tree]))
+            if a.keys() != b.keys() or any(
+                    not np.array_equal(a[k], b[k]) for k in a):
+                raise AssertionError(f"reference {form}: {tree} differs")
+        if (got["cfg"][ConfigValue.COMPUTE_DTYPE] != "bf16"
+                or got["cfg"][ConfigValue.NMS] != radius
+                or got["mode"] != "joint"):
+            raise AssertionError(f"reference {form}: cfg or mode differs")
+    want = Picker(paths["zero_bf16"]).pick_arrays(mic)
+    picker = Picker(ref["zip"])
+    nms_cuda.greedy_nms_cuda.launches = 0
+    got = picker.pick_arrays(mic)
+    launches = nms_cuda.greedy_nms_cuda.launches
+    if launches < 1:
+        raise AssertionError("the reference pick never launched K1")
+    if not (np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+            and got[2] == want[2]):
+        raise AssertionError(f"reference .wt picks {len(got[0])} differ from "
+                             f"the port .wt's {len(want[0])}")
+    check_picks(*got, "reference .wt")
+    outputs, shape = picker._forward([picker._load(mic, False)])
+    hm = picker._heatmaps(outputs, shape)
+    k1 = nms_cuda.greedy_nms_cuda(hm, radius, THRESHOLD, picker.max_peaks)
+    plain = nms_cuda.greedy_nms_plain(hm, radius, THRESHOLD, picker.max_peaks)
+    for a, b in zip(k1, plain):
+        if not torch.equal(a, b):
+            raise AssertionError("K1 on the reference pick's heatmap differs "
+                                 "from its plain version")
+    err = float((k1[0] - plain[0]).abs().max())
+    out = os.path.join(tmp, "reference_picks.txt")
+    cli.start(["pick", "-m", ref["zip"], mic, "-o", out])
+    table = picker.pick_many_table([mic])
+    want_rows = [[str(n), str(x), str(y), str(s)] for n, x, y, s in zip(
+        table["image_name"], table["x_coord"], table["y_coord"],
+        table["score"])]
+    same_rows(read_rows(out)[1:], want_rows, "pick -m reference .wt")
+    d = os.path.join(tmp, "reference_eval")
+    os.makedirs(os.path.join(d, "mics"))
+    os.symlink(mic, os.path.join(d, "mics", "mic.mrc"))
+    cli.start(["eval", "-m", ref["legacy"], "-d", os.path.join(d, "mics"),
+               "--num", "1", "--runs_dir", os.path.join(d, "runs")])
+    (run,) = os.listdir(os.path.join(d, "runs"))
+    rows = read_rows(os.path.join(d, "runs", run, "eval_imgs",
+                                  "mic_scores.txt"))
+    if len(rows) < 2:
+        raise AssertionError("eval -m reference .wt wrote no picks")
+    log(f"reference checkpoint (zip and legacy torch.save, reference names): "
+        f"trees equal the port .wt's; Picker on the card picks the same "
+        f"{len(got[0])} as from the port .wt (bf16), K1 launched {launches} "
+        f"times and equals its plain version on the heatmap; `pick -m` "
+        f"rows equal the Picker's ({len(want_rows)}); `eval -m` (legacy "
+        f"file) wrote {len(rows) - 1} picks")
+    return launches, err
+
+
+def ddp_step(img: np.ndarray, mesh=None):
+    """One float32 joint train step (TF32 off) at global batch 16 on 64^2
+    crops of the micrograph from the seeded weights, the draws from a
+    generator seeded alike: on one card, or this rank's share under
+    ``mesh``.  numpy results."""
+    from spr_pick_tpu_torch import weights
+    from spr_pick_tpu_torch.denoiser import Denoiser
+    from spr_pick_tpu_torch.steps import TrainState, make_optimizer, train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, half = TRAIN_BATCH, TRAIN_PATCH // 2
+    rng = np.random.RandomState(SEED + 40)
+    ys, xs = rng.randint(half, SIZE - half, size=(2, b))
+    crops = np.stack([img[y - half:y + half, x - half:x + half]
+                      for y, x in zip(ys, xs)])[..., None]
+    target = np.where(rng.rand(b) < 0.5, -1.0, rng.rand(b)).astype(np.float32)
+    device = "cuda" if mesh is None else mesh.device
+    den = Denoiser(train_cfg("f32"), device=device, mesh=mesh)
+    den.init_variables(SEED)
+    den.train()
+    batch = {"inp": torch.from_numpy(crops).to(device),
+             "target": torch.from_numpy(target).to(device)}
+    if mesh is not None:
+        batch = mesh.local(batch)
+    ts = TrainState(step=0, denoiser=den, opt=make_optimizer(den))
+    before = [p.detach().clone() for p in ts.opt.params]
+    metrics = train_step(ts, batch, 1e-4, 0.8, 0.01, generator=torch.Generator(
+        device=device).manual_seed(SEED))
+    named = den.named_trainable()
+    grads = weights.named_to_flax(
+        (g, k, t.grad if t.grad is not None else torch.zeros_like(t))
+        for g, k, t in named)
+    # Adam from the same start on this rank's gradient, in one process.
+    again = make_optimizer(den)
+    with torch.no_grad():
+        after = [p.detach().clone() for p in ts.opt.params]
+        for p, p0 in zip(again.params, before):
+            p.copy_(p0)
+    again.step(1e-4)
+    adam = max(float((p.detach() - a).abs().max())
+               for p, a in zip(again.params, after))
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    return dict(metrics={k: v.cpu().numpy() for k, v in metrics.items()},
+                grads=dict(tree_leaves(grads)),
+                static=dict(tree_leaves(den.variables()[1])),
+                after=np.concatenate([a.cpu().numpy().ravel() for a in after]),
+                adam=adam)
+
+
+def compare_steps(got, want, tol, label: str) -> dict:
+    """A rank's step against the one-rank step; raises past ``tol``."""
+    err = {"loss": 0.0, "aug": 0.0, "bn": 0.0}
+    for k, w in want["metrics"].items():
+        g = got["metrics"][k]
+        if g.shape != w.shape:
+            raise AssertionError(f"{label} {k}: shape {g.shape}")
+        if k == "aug_loss":
+            err["aug"] = float(np.abs(g - w).max())
+        else:
+            err["loss"] = max(err["loss"],
+                              float(np.abs((g - w) / w).max()))
+    num = sum(float(np.sum((got["grads"][k] - w) ** 2))
+              for k, w in want["grads"].items())
+    den = sum(float(np.sum(w ** 2)) for w in want["grads"].values())
+    err["grad_l2"] = (num / den) ** 0.5
+    err["bn"] = max(float(np.abs(got["static"][k] - w).max())
+                    for k, w in want["static"].items())
+    err["adam"] = got["adam"]
+    err["after"] = float(np.abs(got["after"] - want["after"]).max())
+    for k in ("loss", "aug", "grad_l2", "bn"):
+        if not err[k] <= tol[k]:
+            raise AssertionError(f"{label}: {k} {err[k]:.3e} > {tol[k]}")
+    # Adam's first update is g / (|g| + eps) < 1 times the LR in size, so
+    # a gradient entry that rounding moves across zero (a max-pool tie)
+    # moves its parameter by less than two LRs.
+    if err["adam"] > ADAM_ATOL or err["after"] > 2e-4 + ADAM_ATOL:
+        raise AssertionError(f"{label}: Adam {err['adam']:.3e}, params "
+                             f"{err['after']:.3e}")
+    return err
+
+
+def ddp_rate(t) -> float:
+    """samples/s of DDP_STEPS bf16 train steps at global batch 16 through
+    the trainer's data plane (this rank's slice under its mesh)."""
+    from spr_pick_tpu_torch.steps import train_step
+
+    t.denoiser.train()
+    gen = t._train_generator
+
+    def window():
+        for _ in range(DDP_STEPS):
+            train_step(t.train_state, t.next_batch(TRAIN_BATCH), 1e-4, 0.8,
+                       0.01, generator=gen)
+
+    _, med = summary(host_ms(window))
+    return 1e3 * DDP_STEPS * TRAIN_BATCH / med
+
+
+def ddp_rank(mesh, img, paths10, tmp: str) -> None:
+    """One rank of phase 12b: its float32 step, K1 in its data-parallel
+    validation, its bf16 rate, into ``tmp/ddp_rank<r>.pkl``."""
+    import pickle
+
+    from spr_pick_tpu_torch.ops import nms_cuda
+
+    step = ddp_step(img, mesh)
+    t, launches = k1_in_training(paths10, os.path.join(tmp, "ddp"),
+                                 nms_cuda, 15, mesh=mesh)
+    rate = ddp_rate(t)
+    with open(os.path.join(tmp, f"ddp_rank{mesh.rank}.pkl"), "wb") as f:
+        pickle.dump(dict(step=step, launches=launches, rate=rate), f)
+
+
+def ddp_phase(tmp: str, img: np.ndarray, paths, frame: str, Picker,
+              trainer, gpu: str) -> int:
+    """12b at D = min(2, cards); ``trainer`` is phase 10's one-card
+    trainer, for the one-card rate.  Returns K1's launches in rank 0's
+    data-parallel validation."""
+    import pickle
+
+    from spr_pick_tpu_torch.parallel import mesh as mesh_mod
+
+    d = min(2, torch.cuda.device_count())
+    paths10 = write_training_set(os.path.join(tmp, "ddpset"))
+    one = ddp_step(img)
+    outs = [os.path.join(tmp, f"ddp_rank{r}.pkl") for r in range(d)]
+    t0 = time.perf_counter()
+    if d == 1:
+        mesh = mesh_mod.init(0, 1, "cuda",
+                             f"tcp://127.0.0.1:{mesh_mod.free_port()}")
+        try:
+            ddp_rank(mesh, img, paths10, tmp)
+        finally:
+            mesh_mod.teardown()
+    else:
+        mesh_mod.launch(ddp_rank, d, "cuda", img, paths10, tmp)
+    ranks = []
+    for out in outs:
+        with open(out, "rb") as f:
+            ranks.append(pickle.load(f))
+    tol = DDP_TOL[min(d, 2)]
+    for r, res in enumerate(ranks):
+        err = compare_steps(res["step"], one, tol, f"ddp rank {r}/{d}")
+        log(f"ddp float32 step, {d} rank(s) (NCCL) against one card, batch "
+            f"{TRAIN_BATCH}: loss terms rtol {err['loss']:.2e} (tol "
+            f"{tol['loss']}), consistency |diff| {err['aug']:.2e} (tol "
+            f"{tol['aug']}), gradient relative L2 {err['grad_l2']:.2e} (tol "
+            f"{tol['grad_l2']}), BatchNorm |diff| {err['bn']:.2e} (tol "
+            f"{tol['bn']}), params after Adam vs one-process Adam on the "
+            f"rank's gradient {err['adam']:.2e}, vs the one-card step "
+            f"{err['after']:.2e} (rank {r})")
+    if d > 1 and not all(np.array_equal(ranks[0]["step"]["after"],
+                                        r["step"]["after"]) for r in ranks):
+        raise AssertionError("ranks hold different parameters")
+    log(f"ddp: {d} rank(s) took {time.perf_counter() - t0:.1f} s; K1 "
+        f"launched {ranks[0]['launches']} times in rank 0's validation")
+    rate1 = ddp_rate(trainer)
+    log(f"rate ddp train bf16 batch {TRAIN_BATCH} {TRAIN_PATCH}^2: "
+        f"{ranks[0]['rate']:.1f} samples/s at D={d} (NCCL), {rate1:.1f} "
+        f"samples/s at 1 (no group) | {gpu}")
+    if d > 1:
+        devices = [f"cuda:{i}" for i in range(d)]
+        want = Picker(paths["main"]).pick_arrays(frame)
+        got = Picker(paths["main"], devices=devices).pick_arrays(frame)
+        if not (np.array_equal(got[0], want[0])
+                and np.array_equal(got[1], want[1])):
+            raise AssertionError(f"tiled pick over {d} cards: {len(got[0])} "
+                                 f"picks, one card {len(want[0])}")
+        log(f"tiled pick {BIG_SHAPE[0]}x{BIG_SHAPE[1]} over {d} cards: the "
+            f"one-card picks ({len(got[0])}), exact")
+    return ranks[0]["launches"]
 
 
 def main() -> int:
@@ -2002,6 +2291,15 @@ def main() -> int:
         launches_in_denoise = denoise_phase(tmp, Picker, nms_cuda, gpu)
         log(f"phase 11 took {time.perf_counter() - t0:.1f} s")
 
+        # 12. Reference checkpoints; data parallelism.
+        t0 = time.perf_counter()
+        launches_in_reference, err = reference_phase(tmp, paths, mic, Picker,
+                                                     nms_cuda, radius)
+        max_abs_err = max(max_abs_err, err)
+        launches_in_ddp = ddp_phase(tmp, img, paths, frame, Picker, trainer,
+                                    gpu)
+        log(f"phase 12 took {time.perf_counter() - t0:.1f} s")
+
     h, w = shape
     bound_ms, bound_by = k1_bound(h, w, k, count, radius)
     big_bound_ms, big_bound_by = k1_bound(*BIG_SHAPE, BIG_CAP, count_big,
@@ -2029,6 +2327,8 @@ def main() -> int:
         "launches_per_tiled_pick_max_peaks_65536": tiled_launches[1],
         "launches_in_training": launches_in_training,
         "launches_in_denoise_training": launches_in_denoise,
+        "launches_in_reference_pick": launches_in_reference,
+        "launches_in_ddp_validation": launches_in_ddp,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

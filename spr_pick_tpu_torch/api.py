@@ -14,7 +14,8 @@ as in the JAX package.
 Semantics match the JAX package's Picker: the same dense forward, the same
 greedy NMS (K1), the same 30 px border filter and x/y column order as
 `_scores.txt` (train.py:write_scores).  Checkpoints written by the JAX
-package load directly (`utils/checkpoint.py`).
+package load directly (`utils/checkpoint.py`), and so do the reference's
+PyTorch checkpoints (`compat.py`).
 
 Micrographs above 2048 px after padding take halo tiling
 (`parallel/tiling.py`, through the evaluator), as in the JAX package.
@@ -59,16 +60,23 @@ class Picker:
     Micrographs above the evaluator's ``tile_eval_threshold`` (2048 px
     after padding) take its halo tiling (``self._ev.tile_eval_size``,
     ``tile_eval_halo``, as in the JAX package), and the stitched heatmap
-    goes to the NMS kernel in one call.
+    goes to the NMS kernel in one call.  ``devices`` (several cards, the
+    first one the Picker's device) deals such a frame's windows over
+    replicas of the model on those cards; the picks are the one-card
+    picks.
+
+    ``checkpoint`` may also be a reference PyTorch `.wt`/`.training`
+    (`compat.py`), loaded in ``mode``.
     """
 
     def __init__(self, checkpoint: str, mode: str = "joint",
                  nms_radius: Optional[int] = None, threshold: float = 0.02,
                  max_peaks: Optional[int] = None, border: int = 30,
-                 seed: int = 0, device=None):
+                 seed: int = 0, device=None, devices=None):
         # The evaluator owns checkpoint loading and the tiled route; no run
         # dir is created unless evaluate() is called.
-        self._ev = DenoiserEvaluator(checkpoint, mode=mode, device=device)
+        self._ev = DenoiserEvaluator(checkpoint, mode=mode, device=device,
+                                     devices=devices)
         self.device = self._ev.device
         self.denoiser = self._ev.denoiser
         cfg = self._ev.cfg

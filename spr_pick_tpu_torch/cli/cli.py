@@ -16,8 +16,13 @@ command needs pandas or PIL: tables are read and written with the `csv`
 module and PNGs with `zlib`.  `train start --dn_only` trains the
 denoise-only algorithms on a folder of micrographs (or ssdn on a TXT
 manifest); ``-l/--alpha/--tau`` stay required there, as in the JAX
-command.  HDF5 datasets and ``--mesh`` above 1 (multi-GPU) are refused,
-naming their ROADMAP items.
+command.  HDF5 datasets are refused, naming their ROADMAP item.
+
+``train --mesh D`` trains data-parallel on D ranks, one process a GPU
+(NCCL), started here; the default is every visible GPU, and with
+``--device cpu`` D gloo ranks on the CPU.  Under ``torchrun
+--nproc_per_node D -m spr_pick_tpu_torch train ...`` (and ``eval``) each
+process joins torchrun's group instead.
 """
 
 from __future__ import annotations
@@ -87,8 +92,9 @@ def _add_shared_args(parser: argparse.ArgumentParser, start: bool):
     parser.add_argument("--patch_size", type=int)
     parser.add_argument("--seed", type=int, help="Base PRNG seed")
     parser.add_argument("--mesh", type=int,
-                        help="Data-parallel mesh size (only 1: multi-GPU is "
-                        "not ported yet)")
+                        help="Data-parallel mesh size: the number of ranks, "
+                        "one a GPU (default: every visible GPU; with "
+                        "--device cpu, gloo ranks on the CPU, default 1)")
     _add_device_arg(parser)
 
 
@@ -243,13 +249,62 @@ def _is_hdf5(path: str) -> bool:
     return not os.path.isdir(path) and not path.endswith(".txt")
 
 
+def _mesh_size(args: Dict) -> int:
+    """The ranks ``train`` runs on: ``--mesh``, else a resumed run's
+    MESH_SHAPE, resolved as the JAX trainer does (`parallel/mesh.py`)."""
+    from spr_pick_tpu_torch.parallel import mesh
+
+    requested = args.get("mesh")
+    batch = args.get("train_batch_size")
+    if args["train_cmd"] == "resume" and (requested is None or batch is None):
+        from spr_pick_tpu_torch.train import resume_path
+        from spr_pick_tpu_torch.utils import checkpoint as ckpt
+
+        path, _ = resume_path(args["run_dir"], args.get("iteration"))
+        cfg = ckpt.load(path)["cfg"]
+        requested = cfg.get(ConfigValue.MESH_SHAPE) if requested is None \
+            else requested
+        batch = cfg[ConfigValue.TRAIN_MINIBATCH_SIZE] if batch is None \
+            else batch
+    if batch is None:
+        batch = cfg_mod.base()[ConfigValue.TRAIN_MINIBATCH_SIZE]
+    try:
+        return mesh.resolve_size(requested, args.get("device"), batch)
+    except mesh.MeshError as exc:
+        raise SystemExit(str(exc))
+
+
 def run_train(args: Dict):
+    """``train start|resume`` on one device, on ``--mesh D`` ranks started
+    here (one process a rank), or as a rank of ``torchrun``'s group."""
+    from spr_pick_tpu_torch.parallel import mesh
+
+    if mesh.torchrun_size() > 1:
+        m = mesh.join_torchrun(args.get("device"))
+        try:
+            if args.get("mesh") not in (None, m.size):
+                raise SystemExit(f"--mesh {args['mesh']} under torchrun with "
+                                 f"{m.size} ranks")
+            _train(args, m)
+        finally:
+            mesh.teardown()
+        return
+    size = _mesh_size(args)
+    if size <= 1:
+        _train(args, None)
+    else:
+        mesh.launch(_train_rank, size, args.get("device"), args)
+
+
+def _train_rank(m, args: Dict):
+    if not m.is_main:
+        logging.getLogger().setLevel(logging.WARNING)
+    _train(args, m)
+
+
+def _train(args: Dict, mesh):
     from spr_pick_tpu_torch.train import DenoiserTrainer, resume_run
 
-    if args.get("mesh") is not None and args["mesh"] > 1:
-        raise SystemExit(
-            f"--mesh {args['mesh']}: multi-GPU training is not ported yet "
-            "(ROADMAP.md §1 item 6); the port trains on one device")
     if args["train_cmd"] == "start":
         if args["algorithm"] == "ssdn" and args.get("noise_value") is None:
             print("error: SSDN requires --noise_value", file=sys.stderr)
@@ -280,21 +335,35 @@ def run_train(args: Dict):
             cfg, mode="denoise" if args["dn_only"] else "joint",
             alpha=args["alpha"], tau=args["tau"],
             runs_dir=args["runs_dir"], profile=bool(args.get("profile")),
-            device=args.get("device"),
+            device=args.get("device"), mesh=mesh,
         )
     else:
         trainer = resume_run(args["run_dir"], iteration=args.get("iteration"),
-                             device=args.get("device"))
+                             device=args.get("device"), mesh=mesh)
         cfg = trainer.cfg
     _apply_shared(cfg, trainer, args)
     trainer.train()
 
 
 def run_eval(args: Dict):
+    """``eval``; as a rank of ``torchrun``'s group, on its shard of the
+    micrographs."""
+    from spr_pick_tpu_torch.parallel import mesh
+
+    if mesh.torchrun_size() <= 1:
+        return _eval(args, None)
+    m = mesh.join_torchrun(args.get("device"))
+    try:
+        _eval(args, m)
+    finally:
+        mesh.teardown()
+
+
+def _eval(args: Dict, mesh):
     from spr_pick_tpu_torch.eval import DenoiserEvaluator
 
     evaluator = DenoiserEvaluator(args["model"], runs_dir=args["runs_dir"],
-                                  device=args.get("device"))
+                                  device=args.get("device"), mesh=mesh)
     evaluator.set_test_data(args["dataset"])
     if args.get("labels") is not None:
         evaluator.set_test_label(args["labels"])
@@ -310,7 +379,7 @@ def run_eval(args: Dict):
         evaluator.cfg[ConfigValue.EXCLUDE_CONTAM] = True
     evaluator.evaluate()
 
-    if args.get("export_star"):
+    if args.get("export_star") and evaluator.is_main:
         from spr_pick_tpu_torch.data.star_export import convert
 
         out = args["export_star"]

@@ -70,12 +70,19 @@ class Denoiser:
     of a second, sequential forward (two updates, the second starting from
     the first's running statistics).  None resolves as in the JAX package
     (denoiser.py:60-87): off at a train batch of exactly 16, on otherwise;
-    ``SPR_FOLD_TTA=0/1`` overrides either way.
+    ``SPR_FOLD_TTA=0/1`` overrides either way.  The batch it reads is the
+    cfg's, the global batch of a data-parallel run.
+
+    ``mesh`` (`parallel/mesh.py`): training runs on this rank's rows of
+    the global batch.  BatchNorm statistics and the PU loss's sums are
+    taken over the global batch, and the flip draw and the sample noise
+    are drawn for the global batch from the same generator on every rank,
+    each rank keeping its rows; explicit draws passed in are global too.
     """
 
     def __init__(self, cfg: Dict, mode: str = "joint",
                  device: torch.device | str | None = None,
-                 fold_tta: Optional[bool] = None):
+                 fold_tta: Optional[bool] = None, mesh=None):
         env_fold = os.environ.get("SPR_FOLD_TTA")
         if env_fold in ("0", "1"):
             fold_tta = env_fold == "1"
@@ -127,6 +134,12 @@ class Denoiser:
                 in_channels=in_ch, out_channels=1, blindspot=False, levels=3,
                 dtype=dtype,
             ).to(self.device).eval()
+        self.mesh = mesh
+        if mesh is not None:
+            # `models.resnet.batch_norm` reads it: global batch statistics.
+            for m in self.model.modules():
+                if isinstance(m, torch.nn.BatchNorm2d):
+                    m.mesh = mesh
         self.l_params: Dict[str, torch.Tensor] = {}
         if (self.pipeline == Pipeline.SSDN
                 and self.noise_value == NoiseValue.UNKNOWN_CONSTANT):
@@ -174,6 +187,28 @@ class Denoiser:
 
     def trainable_parameters(self) -> List[torch.Tensor]:
         return [t for _, _, t in self.named_trainable()]
+
+    def state_tensors(self) -> List[torch.Tensor]:
+        """Every parameter and buffer, in a fixed order (what a
+        data-parallel run broadcasts from rank 0)."""
+        out = [t for _, _, t in self.named_trainable()]
+        out += list(self.model.buffers())
+        if self.sigma_model is not None:
+            out += list(self.sigma_model.buffers())
+        return out
+
+    def _draw(self, given: Optional[torch.Tensor], rows: int, shape,
+              generator, device, parts: int = 1) -> torch.Tensor:
+        """A standard-normal draw of ``parts`` stacked batches of ``rows``
+        local rows each, ``given`` or from ``generator``; under a mesh it is
+        drawn (or given) for the global batch and this rank keeps its
+        rows."""
+        d = 1 if self.mesh is None else self.mesh.size
+        if given is None:
+            given = torch.randn((parts * rows * d,) + tuple(shape),
+                                generator=generator, device=device)
+        return given if self.mesh is None else \
+            self.mesh.local_rows(given, parts)
 
     def train(self, mode: bool = True) -> "Denoiser":
         """Train mode (batch statistics, running updates) or eval mode."""
@@ -349,35 +384,35 @@ class Denoiser:
         inp = batch["inp"]
         b = inp.shape[0]
 
-        def normal(n):
-            return torch.randn((n,) + tuple(inp.shape[1:]),
-                               generator=generator, device=inp.device)
+        def normal(given, parts=1):
+            return self._draw(given, b, inp.shape[1:], generator, inp.device,
+                              parts)
 
         if flip_p is None:
             flip_p = torch.rand((), generator=generator, device=inp.device)
         w_flip = flip_p <= 0.5
         inp_f = torch.where(w_flip, inp.flip(2), inp.flip(1))
         if self.fold_tta:
-            if eps is None:
-                eps = normal(2 * b)
+            eps = normal(eps, parts=2)
             net_out2, hm_logits2 = self.model(torch.cat([inp, inp_f]), False,
                                               eps)
             net_out, hm_logits = net_out2[:b], hm_logits2[:b]
             hm_logits_f = hm_logits2[b:]
         else:
-            if eps is None:
-                eps = normal(b)
+            eps = normal(eps)
             net_out, hm_logits = self.model(inp, False, eps)
-            if eps2 is None:
-                eps2 = normal(b)
+            eps2 = normal(eps2)
             # BatchNorm updates again, from the first forward's statistics.
             _, hm_logits_f = self.model(inp_f, False, eps2)
         hm_logits_f = torch.where(w_flip, hm_logits_f.flip(2),
                                   hm_logits_f.flip(1))
         hm_p = losses.clamped_sigmoid(hm_logits)
         hm_p_f = losses.clamped_sigmoid(hm_logits_f)
-        pred_loss = losses.pu_loss(hm_p, batch["target"], tau, slack=4.0)
+        pred_loss = losses.pu_loss(hm_p, batch["target"], tau, slack=4.0,
+                                   mesh=self.mesh)
         consis_loss = torch.mean((hm_p - hm_p_f) ** 2)
+        if self.mesh is not None:
+            consis_loss = self.mesh.global_mean(consis_loss)
 
         outputs = self._nll_outputs(inp, net_out, batch)
         loss_out = outputs[PipelineOutput.LOSS]
@@ -413,6 +448,11 @@ class Denoiser:
         if train:
             net_out = self.model.denoise_branch(inp)
             if min(inp.shape[1:3]) >= ResNet8.width:
+                if self.mesh is not None:
+                    eps = self._draw(
+                        eps, inp.shape[0],
+                        tuple(inp.shape[1:3]) + (self.in_channels,),
+                        generator, inp.device)
                 with torch.no_grad():
                     self.model.detector(
                         self.model.sample(net_out, eps, generator))

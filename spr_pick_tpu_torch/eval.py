@@ -32,6 +32,7 @@ from spr_pick_tpu_torch import cfg as cfg_mod
 from spr_pick_tpu_torch.data.micrograph import unpad
 from spr_pick_tpu_torch.denoiser import Denoiser
 from spr_pick_tpu_torch.ops.nms import nms_batch_to_host, nms_to_host
+from spr_pick_tpu_torch.parallel.dcn import allreduce_metrics, host_shard
 from spr_pick_tpu_torch.params import (ConfigValue, DatasetType, Pipeline,
                                        PipelineOutput)
 from spr_pick_tpu_torch.steps import eval_step
@@ -61,16 +62,27 @@ class EvaluatorBase:
     Micrographs whose padded edge exceeds ``tile_eval_threshold`` px take
     halo tiling: ``tile_eval_size`` px tiles with a ``tile_eval_halo`` px
     halo (an int, or "auto" to measure it per weight set), one window a
-    forward.
+    forward; a subclass that sets ``_replicas`` (denoisers on other cards)
+    deals the windows of a frame round-robin over them.
+
+    With a ``mesh`` (`parallel/mesh.py`), each rank evaluates its
+    `host_shard` of the micrographs and writes their artifacts, the n/PSNR
+    accumulators are summed over the ranks (train.py:900-911, 1102-1116),
+    and rank 0 alone names the run dir and writes the scalars and the log.
     """
 
     RUN_KIND = "eval"
 
     def __init__(self, runs_dir: str, run_dir: Optional[str] = None,
-                 device=None):
-        self.device = resolve_device(device)
+                 device=None, mesh=None):
+        self.mesh = mesh
+        self.device = resolve_device(
+            self.mesh.device if self.mesh is not None else device)
         self.runs_dir = runs_dir
         self._run_dir = run_dir
+        # The merged metric vector of the last all-reduce over the ranks
+        # (parallel/dcn.py:allreduce_metrics); dropped on every reset.
+        self._eval_merge_base = None
         self._generator: Optional[torch.Generator] = None
         self.testset = None
         self.test_sampler = None
@@ -85,6 +97,18 @@ class EvaluatorBase:
         self._export_pool: Optional[ThreadPoolExecutor] = None
         self._pending_exports = []
         self._writer: Optional[ScalarWriter] = None
+        self._replicas = []
+
+    @property
+    def is_main(self) -> bool:
+        """Whether this process writes the run's shared files (rank 0)."""
+        return self.mesh is None or self.mesh.is_main
+
+    def _agree_run_dir(self) -> None:
+        """Every rank takes rank 0's run dir name."""
+        if self.mesh is not None:
+            self._run_dir = self.mesh.broadcast_object(
+                self.run_dir if self.mesh.is_main else None)
 
     # ------------------------------------------------------------------
     # Test data
@@ -166,6 +190,10 @@ class EvaluatorBase:
         picks for EVERY item, which enables one batched NMS call a group."""
         batch_size = max(int(self.cfg[ConfigValue.TEST_MINIBATCH_SIZE] or 1), 1)
         indices = list(iter(self.test_sampler))
+        # Positions in the test order; a rank of a mesh keeps its shard.
+        order = list(range(len(indices)))
+        if self.mesh is not None:
+            order = host_shard(order, self.mesh.rank, self.mesh.size)
         use_contam = bool(self.cfg.get(ConfigValue.EXCLUDE_CONTAM, False))
         nms_radius = int(self.cfg[ConfigValue.NMS])
         max_peaks = int(self.cfg.get(ConfigValue.MAX_PEAKS, 2048))
@@ -181,16 +209,16 @@ class EvaluatorBase:
 
         carried = None
         idx = 0
-        while idx < len(indices):
+        while idx < len(order):
             if carried is not None:
                 first, carried = carried, None
             else:
-                first = self.testset.test_item(indices[idx], pad_multiple=32,
-                                               square=square)
+                first = self.testset.test_item(indices[order[idx]],
+                                               pad_multiple=32, square=square)
             if max(first["inp"].shape[1:3]) > self.tile_eval_threshold:
                 # Giant micrographs go through halo tiling.
-                finish(idx, self._evaluate_tiled(first, self._generator),
-                       first)
+                finish(order[idx],
+                       self._evaluate_tiled(first, self._generator), first)
                 idx += 1
                 continue
 
@@ -198,8 +226,8 @@ class EvaluatorBase:
             # shape-boundary item is carried into the next group (folder
             # datasets decode from disk on every test_item call).
             group = [first]
-            while len(group) < batch_size and idx + len(group) < len(indices):
-                nxt = self.testset.test_item(indices[idx + len(group)],
+            while len(group) < batch_size and idx + len(group) < len(order):
+                nxt = self.testset.test_item(indices[order[idx + len(group)]],
                                              pad_multiple=32, square=square)
                 if nxt["inp"].shape != first["inp"].shape:
                     carried = nxt
@@ -238,10 +266,16 @@ class EvaluatorBase:
                        if v.ndim == 4}
                 if group_picks is not None:
                     per["_picks"] = group_picks[j]
-                finish(idx + j, per, item)
+                finish(order[idx + j], per, item)
             idx += len(group)
         # Every artifact is on disk when this returns.
         self._flush_exports()
+        if self.mesh is not None:
+            # The logged n/PSNR are the GLOBAL ones; the key list comes
+            # from the cfg, the same on every rank.
+            keys = ["n"] + list(self.img_outputs(prefix="psnr").values())
+            self._eval_merge_base = allreduce_metrics(
+                self.eval_history, keys, base=self._eval_merge_base)
 
     # ------------------------------------------------------------------
     # Halo tiling
@@ -262,10 +296,32 @@ class EvaluatorBase:
         if halo == "auto":
             halo = self._calibrated_halo(apply_tiles, image,
                                          item.get("image_shape"))
-        stitched = tiled_dense_apply(
-            apply_tiles, image, tile=self.tile_eval_size, halo=halo, align=32,
-        )
+        fns = [apply_tiles] + [self._replica_apply_fn(r, generator)
+                               for r in self._replicas]
+        stitched = tiled_dense_apply(fns, image, tile=self.tile_eval_size,
+                                     halo=halo, align=32)
         return {k: v[None, :, :, None] for k, v in stitched.items()}
+
+    def _replica_apply_fn(self, replica: Denoiser,
+                          generator: torch.Generator):
+        """`_tile_apply_fn` on a replica on another card: a joint model's
+        sample noise is drawn from ``generator`` on its own device, in the
+        order of the chunks (what the one-card pass draws for the same
+        chunk), and carried over."""
+
+        def apply_tiles(chunk):
+            draws = {}
+            if replica.mode == "joint":
+                shape = tuple(chunk.shape[:3]) + (replica.in_channels,)
+                draws["eps"] = torch.randn(
+                    shape, generator=generator,
+                    device=generator.device).to(replica.device)
+            outputs = eval_step(replica, {"inp": chunk.to(replica.device)},
+                                **draws)
+            return {k: v for k, v in outputs.items()
+                    if v.ndim == 4 and v.shape[1:3] == chunk.shape[1:3]}
+
+        return apply_tiles
 
     def _tile_apply_fn(self, generator: torch.Generator):
         """The dense forward over a chunk of windows, keeping only the
@@ -512,19 +568,36 @@ class EvaluatorBase:
 
 
 class DenoiserEvaluator(EvaluatorBase):
-    """Owns a Denoiser loaded from a `.training` or `.wt` checkpoint, its
-    test data, and the eval run dir (created on `evaluate`)."""
+    """Owns a Denoiser loaded from a `.training` or `.wt` checkpoint (the
+    port's, the JAX package's or the reference's), its test data, and the
+    eval run dir (created on `evaluate`).
+
+    ``devices``: cards to deal the windows of a tiled frame to, each with a
+    replica of the model (the first is the evaluator's device); ``mesh``:
+    the ranks that share the micrograph list.
+    """
 
     def __init__(self, state_path: str, runs_dir: str = cfg_mod.DEFAULT_RUN_DIR,
-                 mode: str = "joint", device=None):
-        super().__init__(runs_dir, device=device)
+                 mode: str = "joint", device=None, devices=None, mesh=None):
+        if devices:
+            if device is not None and torch.device(device) != torch.device(
+                    devices[0]):
+                raise ValueError(f"device {device} is not devices[0] "
+                                 f"({devices[0]})")
+            device = devices[0]
+        super().__init__(runs_dir, device=device, mesh=mesh)
         if not os.path.exists(state_path):
             raise FileNotFoundError(f"Checkpoint does not exist: {state_path}")
-        state = ckpt.load(state_path)
+        state = ckpt.load(state_path, mode=mode)
         self.cfg = state["cfg"]
         self.mode = state.get("mode") or mode
         self.denoiser = Denoiser(self.cfg, mode=self.mode, device=self.device)
         self.denoiser.load_variables(state["trainable"], state["static"])
+        for d in (devices or [])[1:]:
+            replica = Denoiser(self.cfg, mode=self.mode,
+                               device=resolve_device(d))
+            replica.load_variables(state["trainable"], state["static"])
+            self._replicas.append(replica)
         training = "training" in state.get("format", "") or "opt_state" in state
         self.iteration = int(state["iteration"]) if training else 0
         # The optimizer step, for the weight fingerprint (train.py:1461).
@@ -542,8 +615,10 @@ class DenoiserEvaluator(EvaluatorBase):
             if not self.cfg.get(ConfigValue.TEST_DATA_PATH):
                 raise ValueError("Test dataset not set")
             self.testset, self.test_sampler = self.test_data()
-        _ = self.writer
-        setup_logging(self.run_dir_path, "log.txt")
+        self._agree_run_dir()
+        if self.is_main:
+            _ = self.writer
+            setup_logging(self.run_dir_path, "log.txt")
         logger.info(separator())
         logger.info("EVALUATING...")
         self.reset_metrics()
@@ -562,6 +637,7 @@ class DenoiserEvaluator(EvaluatorBase):
         return callback
 
     def reset_metrics(self):
+        self._eval_merge_base = None
         self.eval_history["n"] = 0
         for metric in self.eval_history.values():
             if isinstance(metric, Metric):

@@ -148,8 +148,18 @@ def _ge_penalty(q_mu, q_var, n, b: int, tau: float, entropy_penalty: float):
     return ge
 
 
+def _global_sums(mesh, *sums: torch.Tensor):
+    """The batch sums a loss couples its items with, over the global batch
+    of a data-parallel run (one all-reduce that carries gradients); as
+    they are without a mesh."""
+    if mesh is None:
+        return sums
+    return tuple(mesh.global_sum(torch.stack(sums)).unbind())
+
+
 def pu_loss(pred: torch.Tensor, target: torch.Tensor, tau: float,
-            slack: float = 4.0, entropy_penalty: float = 0.0) -> torch.Tensor:
+            slack: float = 4.0, entropy_penalty: float = 0.0,
+            mesh=None) -> torch.Tensor:
     """PU loss: BCE on labeled coords + slack * GE binomial penalty.
 
     Parity: `spr_pick_tpu/losses.py:130-180` (the reference's `pu_loss`,
@@ -159,37 +169,40 @@ def pu_loss(pred: torch.Tensor, target: torch.Tensor, tau: float,
       unlabeled: y == -1 -> q_mu = sum p, q_var = sum p(1-p)
                  q_discrete = softmax_k(-(q_mu - k)^2 / (2 q_var)), k = 0..N
                  ge = -sum_k logBinom(k; N, tau) * q_discrete
+
+    With a ``mesh`` (`parallel/mesh.py`) ``pred``/``target`` are this
+    rank's rows and every sum runs over the global batch.
     """
     pred = pred.reshape(-1)
     target = target.reshape(-1)
-    b = pred.shape[0]
+    b = pred.shape[0] * (1 if mesh is None else mesh.size)
 
     labeled = (target >= 0).to(pred.dtype)
-    n_labeled = torch.sum(labeled)
     cls_elem = bce(pred, torch.clamp(target, 0.0, 1.0)) * labeled
-    classifier_loss = torch.where(
-        n_labeled > 0,
-        torch.sum(cls_elem) / torch.clamp(n_labeled, min=1.0),
-        torch.zeros_like(n_labeled),
-    )
-
     unlabeled = (target == -1).to(pred.dtype)
     p_hat = pred * unlabeled
-    q_mu = torch.sum(p_hat)
-    q_var = torch.sum(p_hat * (1.0 - p_hat))
-    ge_penalty = _ge_penalty(q_mu, q_var, torch.sum(unlabeled), b, tau,
+    cls_sum, n_labeled, q_mu, q_var, n_unlabeled = _global_sums(
+        mesh, torch.sum(cls_elem), torch.sum(labeled), torch.sum(p_hat),
+        torch.sum(p_hat * (1.0 - p_hat)), torch.sum(unlabeled))
+    classifier_loss = torch.where(
+        n_labeled > 0,
+        cls_sum / torch.clamp(n_labeled, min=1.0),
+        torch.zeros_like(n_labeled),
+    )
+    ge_penalty = _ge_penalty(q_mu, q_var, n_unlabeled, b, tau,
                              entropy_penalty)
     return classifier_loss + slack * ge_penalty
 
 
 def modified_pu_loss(pred: torch.Tensor, target: torch.Tensor, tau: float,
-                     slack: float = 1.0,
-                     entropy_penalty: float = 0.0) -> torch.Tensor:
+                     slack: float = 1.0, entropy_penalty: float = 0.0,
+                     mesh=None) -> torch.Tensor:
     """Per-patch GE variant: focal classifier on patches containing positives
     + binomial GE over patch-mean scores of all-unlabeled patches.
 
     Parity: `spr_pick_tpu/losses.py:183-226` (reference losses.py:252-300);
-    ``pred``/``target`` are (B, H, W, 1) maps.
+    ``pred``/``target`` are (B, H, W, 1) maps.  With a ``mesh``, this
+    rank's rows, and the sums over the global batch.
     """
     b = pred.shape[0]
     t_flat = target.reshape(b, -1)
@@ -199,17 +212,16 @@ def modified_pu_loss(pred: torch.Tensor, target: torch.Tensor, tau: float,
     item_mask = has_pos[:, None]
     cls = _focal_elements(p_flat, t_flat)
     pos_inds = (t_flat == 1).to(pred.dtype) * item_mask
-    num_pos = torch.sum(pos_inds)
-    cls_sum = torch.sum(cls * item_mask)
+    un_mask = 1.0 - has_pos
+    p_mean = torch.mean(p_flat, dim=1) * un_mask
+    num_pos, cls_sum, n, q_mu, q_var = _global_sums(
+        mesh, torch.sum(pos_inds), torch.sum(cls * item_mask),
+        torch.sum(un_mask), torch.sum(p_mean),
+        torch.sum(p_mean * (1.0 - p_mean) * un_mask))
     classifier_loss = torch.where(
         num_pos > 0, cls_sum / torch.clamp(num_pos, min=1.0), cls_sum)
-
-    un_mask = 1.0 - has_pos
-    n = torch.sum(un_mask)
-    p_mean = torch.mean(p_flat, dim=1) * un_mask
-    q_mu = torch.sum(p_mean)
-    q_var = torch.sum(p_mean * (1.0 - p_mean) * un_mask)
-    ge = _ge_penalty(q_mu, q_var, n, b, tau, entropy_penalty)
+    b_global = b * (1 if mesh is None else mesh.size)
+    ge = _ge_penalty(q_mu, q_var, n, b_global, tau, entropy_penalty)
     ge = ge / torch.clamp(n, min=1.0)
     return classifier_loss + slack * ge
 
@@ -243,35 +255,39 @@ def focal_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
 
 
 def pu_focal_loss(pred: torch.Tensor, gt: torch.Tensor, tau: float,
-                  beta: float = 0.0, gamma: float = 1.0) -> torch.Tensor:
+                  beta: float = 0.0, gamma: float = 1.0,
+                  mesh=None) -> torch.Tensor:
     """Focal-style PU risk with soft labels and beta clip.
 
     Parity: `spr_pick_tpu/losses.py:254-290` (reference `_pu_neg_loss`,
-    losses.py:126-184).
+    losses.py:126-184).  With a ``mesh``, this rank's rows, and the sums
+    over the global batch.
     """
     true_pos = (gt > 0.5).to(pred.dtype)
     other = (gt < 1).to(pred.dtype)
     soft_pos = (true_pos == other).to(pred.dtype)
     unlabeled = (gt == -1).to(pred.dtype)
 
-    num_pos = torch.clamp(torch.sum(true_pos), min=1.0)
-    num_soft = torch.clamp(torch.sum(soft_pos), min=1.0)
-    num_un = torch.clamp(torch.sum(unlabeled), min=1.0)
-
     soft_pow_w = (1.0 - gt) ** 4
     soft_pow_neg_w = gt ** 4
 
-    pos_loss = torch.sum(torch.log(pred) * (1.0 - pred) ** 2 * true_pos)
-    soft_pos_loss = torch.sum(
-        torch.log(1.0 - pred) * pred ** 2 * soft_pow_w * soft_pos)
-    pos_risk = (-pos_loss / num_pos - soft_pos_loss / num_soft) * tau
+    (n_pos, n_soft, n_un, pos_loss, soft_pos_loss, neg_pos_loss, neg_soft,
+     unlabeled_sum) = _global_sums(
+        mesh, torch.sum(true_pos), torch.sum(soft_pos), torch.sum(unlabeled),
+        torch.sum(torch.log(pred) * (1.0 - pred) ** 2 * true_pos),
+        torch.sum(torch.log(1.0 - pred) * pred ** 2 * soft_pow_w * soft_pos),
+        torch.sum(torch.log(1.0 - pred) * pred ** 2 * true_pos),
+        torch.sum(torch.log(pred) * (1.0 - pred) ** 2 * soft_pow_neg_w
+                  * soft_pos),
+        torch.sum(pred ** 2 * torch.log(1.0 - pred) * unlabeled))
+    num_pos = torch.clamp(n_pos, min=1.0)
+    num_soft = torch.clamp(n_soft, min=1.0)
+    num_un = torch.clamp(n_un, min=1.0)
 
-    neg_pos_loss = torch.sum(torch.log(1.0 - pred) * pred ** 2 * true_pos)
-    neg_soft = torch.sum(
-        torch.log(pred) * (1.0 - pred) ** 2 * soft_pow_neg_w * soft_pos)
+    pos_risk = (-pos_loss / num_pos - soft_pos_loss / num_soft) * tau
     neg_pos_risk = -neg_pos_loss / num_pos - neg_soft / num_soft
 
-    unlabeled_loss = -torch.sum(pred ** 2 * torch.log(1.0 - pred) * unlabeled)
+    unlabeled_loss = -unlabeled_sum
     neg_risk_total = -tau * neg_pos_risk + unlabeled_loss / num_un
     return torch.where(neg_risk_total < -beta, pos_risk,
                        pos_risk + neg_risk_total)

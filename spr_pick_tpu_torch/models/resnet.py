@@ -42,6 +42,10 @@ def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d,
     ``F.batch_norm(training=True)`` would update ``running_var`` with the
     unbiased one, off by n / (n - 1): 16/15 at batch 16 on ResNet8's last
     layer, whose output is 1x1 a patch.
+
+    A BatchNorm given a ``mesh`` attribute (`Denoiser` sets it in a
+    data-parallel run, `parallel/mesh.py`) takes both moments over the
+    global batch, and every rank applies the same running update.
     """
     x = x.float()
     if not bn.training:
@@ -49,7 +53,13 @@ def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d,
                          bn.bias, training=False, eps=BN_EPS)
         return y.to(dtype or torch.float32)
     mean = x.mean(dim=(0, 2, 3))
-    var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+    mean_sq = (x * x).mean(dim=(0, 2, 3))
+    mesh = getattr(bn, "mesh", None)
+    if mesh is not None:
+        # Data parallel: the global batch's statistics, as GSPMD computes
+        # them, with gradients through the all-reduce.
+        mean, mean_sq = mesh.global_mean(torch.stack([mean, mean_sq]))
+    var = torch.clamp(mean_sq - mean * mean, min=0.0)
     with torch.no_grad():
         bn.running_mean.copy_(BN_DECAY * bn.running_mean
                               + (1 - BN_DECAY) * mean)

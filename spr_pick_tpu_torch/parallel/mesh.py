@@ -1,0 +1,232 @@
+"""Data parallelism over cards: which ranks, their process group, and the
+collectives the train step needs.
+
+The port's counterpart of `spr_pick_tpu/parallel/mesh.py`.  The JAX
+package builds a 1-D mesh over the local chips and lets GSPMD partition
+the step; here each card is one process (rank) of a `torch.distributed`
+group: NCCL on cards, gloo on the CPU (``device="cpu"``, what the tests
+run).  The step keeps the mesh step's semantics, one step at global batch
+B over D ranks equals the single-device step at batch B:
+
+  * every rank draws the GLOBAL batch and the step's noise from the same
+    seed and keeps its rows ``[r B/D, (r+1) B/D)`` (`Mesh.local`,
+    `Mesh.local_rows`);
+  * the batch-coupled terms (BatchNorm's batch statistics, the PU losses'
+    sums) are summed over the ranks with `Mesh.global_sum`, an all-reduce
+    whose backward all-reduces too;
+  * the gradients are averaged over the ranks before Adam
+    (`Mesh.average_gradients`).
+
+Each rank's backward through `global_sum` yields D times its share of the
+global gradient, as its local-mean terms do, so the average is the global
+gradient.  A failing init, a missing card for a rank or a failing
+collective raises: a run never falls back to one device.
+
+`resolve_size` resolves ``--mesh``/``MESH_SHAPE`` as the JAX trainer does
+(train.py:201-221); `launch` starts D worker processes for one command,
+and `join_torchrun` joins the group ``torchrun`` set up.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+import socket
+from datetime import timedelta
+from typing import Callable, Dict, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+logger = logging.getLogger("mesh")
+
+TIMEOUT = timedelta(minutes=10)
+
+
+class MeshError(RuntimeError):
+    """A mesh that cannot be built as asked."""
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """D ranks of the default process group; this process is ``rank``, on
+    ``device``."""
+
+    size: int
+    rank: int
+    device: torch.device
+
+    @property
+    def is_main(self) -> bool:
+        return self.rank == 0
+
+    def local_rows(self, t: torch.Tensor, parts: int = 1) -> torch.Tensor:
+        """This rank's rows of a global draw of ``parts`` stacked batches
+        (the folded flip-TTA noise is [primary B; flipped B])."""
+        n = t.shape[0] // parts
+        if n % self.size or n * parts != t.shape[0]:
+            raise MeshError(f"{t.shape[0]} rows ({parts} part(s)) do not "
+                            f"split evenly over {self.size} ranks")
+        b = n // self.size
+        chunks = [t[p * n + self.rank * b: p * n + (self.rank + 1) * b]
+                  for p in range(parts)]
+        return chunks[0] if parts == 1 else torch.cat(chunks)
+
+    def local(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """This rank's slice of a global batch (every value batched on its
+        first dimension)."""
+        return {k: self.local_rows(v) for k, v in batch.items()}
+
+    def global_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum over the ranks; differentiable (the backward all-reduces the
+        incoming gradient)."""
+        return _AllReduceSum.apply(t)
+
+    def global_mean(self, t: torch.Tensor) -> torch.Tensor:
+        """Mean over the ranks of per-rank means of equal-size shards: the
+        global mean."""
+        return self.global_sum(t) / self.size
+
+    def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """The ranks' row blocks concatenated in rank order (no gradient)."""
+        parts = [torch.empty_like(t) for _ in range(self.size)]
+        dist.all_gather(parts, t.contiguous())
+        return torch.cat(parts)
+
+    @torch.no_grad()
+    def average_gradients(self, params: Sequence[torch.Tensor]) -> None:
+        """All-reduce the gradients of ``params`` into their mean over the
+        ranks, in one flat buffer; a missing gradient counts as zero."""
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        flat = torch.cat([p.grad.reshape(-1) for p in params])
+        dist.all_reduce(flat)
+        flat /= self.size
+        offset = 0
+        for p in params:
+            n = p.numel()
+            p.grad.copy_(flat[offset: offset + n].view_as(p.grad))
+            offset += n
+
+    @torch.no_grad()
+    def broadcast_(self, tensors: Sequence[torch.Tensor]) -> None:
+        """Overwrite ``tensors`` with rank 0's."""
+        for t in tensors:
+            dist.broadcast(t, 0)
+
+    def broadcast_object(self, obj):
+        """Rank 0's ``obj`` on every rank."""
+        box = [obj]
+        dist.broadcast_object_list(box, 0)
+        return box[0]
+
+    def any(self, flag: bool) -> bool:
+        """Whether ``flag`` is set on any rank."""
+        t = torch.tensor([float(flag)], device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return bool(t.item())
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t):
+        out = t.clone()
+        dist.all_reduce(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad)
+        return grad
+
+
+def _is_cpu(device) -> bool:
+    return device is not None and torch.device(device).type == "cpu"
+
+
+def resolve_size(requested: Optional[int], device, batch: int) -> int:
+    """The number of ranks for ``--mesh``/``MESH_SHAPE`` (train.py:201-221):
+    None means every visible card when there are several (one rank on the
+    CPU unless a size is asked for); a size larger than the visible cards
+    raises, naming both counts; a global batch that the size does not
+    divide runs on one device, with a warning."""
+    if _is_cpu(device):
+        size = requested or 1
+    else:
+        cards = torch.cuda.device_count()
+        size = requested if requested is not None else max(cards, 1)
+        if size > 1 and size > cards:
+            raise MeshError(
+                f"--mesh {size}: {size} GPUs are needed, {cards} visible")
+    if size > 1 and batch % size:
+        logger.warning("batch size %d not divisible by mesh size %d; "
+                       "running single-device", batch, size)
+        return 1
+    return max(size, 1)
+
+
+def init(rank: int, size: int, device, init_method: str,
+         local_rank: Optional[int] = None) -> Mesh:
+    """Join a group of ``size`` ranks as ``rank``: NCCL on cards (rank on
+    ``cuda:local_rank``), gloo when ``device`` is the CPU."""
+    if _is_cpu(device):
+        dev = torch.device("cpu")
+        backend = "gloo"
+    else:
+        local = rank if local_rank is None else local_rank
+        if local >= torch.cuda.device_count():
+            raise MeshError(f"rank {rank}: no card cuda:{local} "
+                            f"({torch.cuda.device_count()} visible)")
+        dev = torch.device("cuda", local)
+        torch.cuda.set_device(dev)
+        backend = "nccl"
+    kwargs = {"device_id": dev} if backend == "nccl" else {}
+    dist.init_process_group(backend, init_method=init_method,
+                            world_size=size, rank=rank, timeout=TIMEOUT,
+                            **kwargs)
+    return Mesh(size=size, rank=rank, device=dev)
+
+
+def teardown() -> None:
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def torchrun_size() -> int:
+    """The world size ``torchrun`` set in the environment (1 without it)."""
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def join_torchrun(device=None) -> Mesh:
+    """Join the group ``torchrun`` describes (WORLD_SIZE, RANK,
+    LOCAL_RANK, MASTER_ADDR/PORT in the environment)."""
+    return init(int(os.environ["RANK"]), torchrun_size(), device, "env://",
+                local_rank=int(os.environ.get("LOCAL_RANK", "0")))
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _worker(rank: int, fn: Callable, size: int, device, init_method: str,
+            args) -> None:
+    mesh = init(rank, size, device, init_method)
+    try:
+        fn(mesh, *args)
+    finally:
+        teardown()
+
+
+def launch(fn: Callable, size: int, device, *args) -> None:
+    """Run ``fn(mesh, *args)`` in ``size`` new processes, one a rank, on
+    127.0.0.1; raises when any of them fails (the others are stopped)."""
+    import torch.multiprocessing as mp
+
+    init_method = f"tcp://127.0.0.1:{free_port()}"
+    mp.start_processes(_worker, args=(fn, size, device, init_method, args),
+                       nprocs=size, join=True, start_method="spawn")

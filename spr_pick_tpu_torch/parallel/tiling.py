@@ -12,14 +12,15 @@ boundary exactness.
 Unlike the JAX package, windows, forward outputs and stitched maps stay
 torch tensors on the image's device: stitching is a copy, so the numbers are
 the same, and the stitched heatmap reaches the NMS kernel without a host
-round trip.
+round trip.  Windows can be dealt over several cards (`tiled_dense_apply`
+with one apply function a card); no collective is involved.
 """
 
 from __future__ import annotations
 
 import logging
 import math
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -164,8 +165,8 @@ def _aligned_halo(h: int, w: int, tile: int, halo: int, align: int) -> int:
     return bumped
 
 
-def tiled_dense_apply(apply_tiles: ApplyFn, image: torch.Tensor,
-                      tile: int = 1024, halo: int = 96,
+def tiled_dense_apply(apply_tiles: Union[ApplyFn, Sequence[ApplyFn]],
+                      image: torch.Tensor, tile: int = 1024, halo: int = 96,
                       max_batch: Optional[int] = None,
                       align: int = 1) -> Dict[str, torch.Tensor]:
     """Run a dense per-pixel model over a large micrograph by tiles.
@@ -176,7 +177,15 @@ def tiled_dense_apply(apply_tiles: ApplyFn, image: torch.Tensor,
     output's valid centres are copied into an (H, W) map there as the chunk
     returns.  ``align`` pads windows up to a multiple (the dense U-Net route
     needs 32) when a clamped window is not already aligned.
+
+    A list of apply functions (one a card, each with its replica of the
+    model: the counterpart of the JAX package's ``mesh=``) deals the chunks
+    round-robin: each round launches one chunk on every card, in chunk
+    order, then stitches their outputs on the image's device.  The chunks
+    and their order are those of one function, so the stitched maps are
+    too.
     """
+    fns = [apply_tiles] if callable(apply_tiles) else list(apply_tiles)
     h, w = image.shape
     halo = _aligned_halo(h, w, tile, halo, align)
     tiles, grid, offsets = extract_tiles(image.float(), tile, halo)
@@ -201,14 +210,18 @@ def tiled_dense_apply(apply_tiles: ApplyFn, image: torch.Tensor,
         tiles = torch.cat([tiles, tiles[-1:].expand(t_pad - t, -1, -1)])
 
     stitched: Dict[str, torch.Tensor] = {}
-    for i in range(0, t_pad, batch):
-        out = apply_tiles(tiles[i : i + batch, :, :, None])
-        for name, val in out.items():
-            if name not in stitched:
-                stitched[name] = val.new_empty((h, w))
-            for j in range(min(batch, t - i)):
-                _stitch_into(stitched[name], val[j, :win_y, :win_x, 0],
-                             i + j, grid, tile, offsets)
+    starts = list(range(0, t_pad, batch))
+    for r in range(0, len(starts), len(fns)):
+        launched = [(i, fn(tiles[i : i + batch, :, :, None]))
+                    for i, fn in zip(starts[r : r + len(fns)], fns)]
+        for i, out in launched:
+            for name, val in out.items():
+                val = val.to(image.device)
+                if name not in stitched:
+                    stitched[name] = val.new_empty((h, w))
+                for j in range(min(batch, t - i)):
+                    _stitch_into(stitched[name], val[j, :win_y, :win_x, 0],
+                                 i + j, grid, tile, offsets)
     return stitched
 
 

@@ -93,9 +93,11 @@ def init_state(denoiser: Denoiser, seed: int = 0) -> TrainState:
     return TrainState(step=0, denoiser=denoiser, opt=make_optimizer(denoiser))
 
 
-def _collect_metrics(outputs: Dict) -> Dict[str, torch.Tensor]:
+def _collect_metrics(outputs: Dict, mesh=None) -> Dict[str, torch.Tensor]:
     """Host-facing metric dict from pipeline outputs, still on the device:
-    per-item losses, scalar terms, mean noise/model s.d."""
+    per-item losses, scalar terms, mean noise/model s.d.  Under a mesh, the
+    global batch's: per-item rows gathered in rank order, scalars
+    averaged over the ranks."""
     metrics = {"loss": outputs[PipelineOutput.LOSS].detach()}
     for key in (PipelineOutput.DENOISE_LOSS, PipelineOutput.DETECT_LOSS,
                 PipelineOutput.AUG_LOSS):
@@ -104,6 +106,10 @@ def _collect_metrics(outputs: Dict) -> Dict[str, torch.Tensor]:
     for key in (PipelineOutput.NOISE_STD_DEV, PipelineOutput.MODEL_STD_DEV):
         if key in outputs:
             metrics[key.value] = torch.mean(outputs[key].detach())
+    if mesh is not None:
+        with torch.no_grad():
+            metrics = {k: mesh.gather_rows(v) if v.ndim else
+                       mesh.global_mean(v) for k, v in metrics.items()}
     return metrics
 
 
@@ -115,16 +121,22 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], lr: float,
     (`_grad_update`, steps.py:50-80), the pipeline's draws from
     ``generator``.  A parameter the loss does not reach (the detector of a
     denoise-only ssdn) gets no gradient, which Adam counts as zero.
-    Returns the step's metrics on the device."""
+    Returns the step's metrics on the device.
+
+    In a data-parallel run (``denoiser.mesh``), ``batch`` is this rank's
+    slice of the global batch and the gradients are averaged over the
+    ranks before Adam, so every rank applies the global-batch update."""
     den = state.denoiser
     for p in state.opt.params:
         p.grad = None
     loss, outputs = den.run_pipeline(batch, True, alpha, tau,
                                      generator=generator)
     loss.backward()
+    if den.mesh is not None:
+        den.mesh.average_gradients(state.opt.params)
     state.opt.step(lr)
     state.step += 1
-    return _collect_metrics(outputs)
+    return _collect_metrics(outputs, den.mesh)
 
 
 def eval_step(denoiser: Denoiser, batch: Dict[str, torch.Tensor],

@@ -34,6 +34,15 @@ are saved in every `.training`, so a resumed run draws what the
 uninterrupted one would.  Validation draws its noise from a generator
 seeded with the cfg seed at each pass.  The device is the GPU unless the
 caller passes another (`utils/device.py`).
+
+Data parallel (``mesh``, `parallel/mesh.py`; the JAX trainer's mesh,
+train.py:201-221): each rank runs this loop on its own card, draws the
+same global batch and keeps its rows (`next_batch`), and steps in
+lockstep with the others (`steps.train_step` averages the gradients);
+the ranks start from rank 0's variables, stop together on a signal to
+any of them, validate on their shares of the micrographs, and rank 0
+alone writes snapshots, `.wt`, scalars and the log.  The data state is
+the global one, so a run resumes at any number of ranks.
 """
 
 from __future__ import annotations
@@ -108,8 +117,8 @@ class DenoiserTrainer(EvaluatorBase):
     def __init__(self, cfg: Optional[Dict], mode: str = "joint",
                  alpha: Optional[float] = None, tau: Optional[float] = None,
                  runs_dir: str = DEFAULT_RUN_DIR, run_dir: Optional[str] = None,
-                 profile: bool = False, device=None):
-        super().__init__(runs_dir, run_dir=run_dir, device=device)
+                 profile: bool = False, device=None, mesh=None):
+        super().__init__(runs_dir, run_dir=run_dir, device=device, mesh=mesh)
         if mode not in ("joint", "denoise"):
             raise ValueError(f"mode {mode!r}: expected 'joint' or 'denoise'")
         self.profile = profile
@@ -157,20 +166,21 @@ class DenoiserTrainer(EvaluatorBase):
         }
         self.reset_metrics()
 
-    def _check_mesh(self):
-        n = self.cfg.get(ConfigValue.MESH_SHAPE)
-        if n is not None and n > 1:
-            raise NotImplementedError(
-                f"mesh {n}: multi-GPU training is not ported yet (ROADMAP.md "
-                "§1 item 6); the port trains on one device"
-            )
+    def _new_denoiser(self) -> Denoiser:
+        return Denoiser(self.cfg, mode=self.mode, device=self.device,
+                        mesh=self.mesh)
+
+    def _sync_ranks(self) -> None:
+        """Every rank of a mesh starts from rank 0's variables."""
+        if self.mesh is not None:
+            self.mesh.broadcast_(self.denoiser.state_tensors())
 
     def new_target(self):
         """Fresh Denoiser + TrainState (train.py:186-199)."""
-        self._check_mesh()
-        self.denoiser = Denoiser(self.cfg, mode=self.mode, device=self.device)
+        self.denoiser = self._new_denoiser()
         seed = int(self.cfg.get(ConfigValue.SEED, 0))
         self.train_state = init_state(self.denoiser, seed=seed)
+        self._sync_ranks()
         # The value of jax.random.PRNGKey(seed + 1).
         self._rng_key = np.array([0, seed + 1], np.uint32)
         self._train_generator = _key_generator(self._rng_key, self.device)
@@ -316,8 +326,10 @@ class DenoiserTrainer(EvaluatorBase):
     def train(self):
         if self.denoiser is None:
             self.new_target()
-        _ = self.writer
-        setup_logging(self.run_dir_path, "log.txt")
+        self._agree_run_dir()
+        if self.is_main:
+            _ = self.writer
+            setup_logging(self.run_dir_path, "log.txt")
         logger.info(separator())
         logger.info("Loading Training Dataset...")
         self.trainset, self.train_sampler, self.patch_pipeline = \
@@ -343,14 +355,14 @@ class DenoiserTrainer(EvaluatorBase):
             # Metrics stay on the device until a boundary flushes them.
             pending_metrics = []
             capture = None
-            if self.profile:
+            if self.profile and self.is_main:
                 capture = Trace(os.path.join(self.run_dir_path, "profile"))
             fired = dict.fromkeys(("eval", "print", "snapshot"),
                                   self.state[StateValue.ITERATION] - 1)
             self.denoiser.train()
             while True:
                 iteration = self.state[StateValue.ITERATION]
-                if self._stop_requested:
+                if self._stop_agreed():
                     # No final-*.wt: that file means the run completed.
                     self._flush_metrics(pending_metrics, batch_size)
                     if capture is not None:
@@ -383,7 +395,8 @@ class DenoiserTrainer(EvaluatorBase):
                                + history[HistoryValue.TRAIN]["n"])
                     self.update_eta(samples, last_print.total)
                     logger.info(self.state_str(eval_prefix="VALID"))
-                    self.write_metrics(eval_prefix="valid")
+                    if self.is_main:
+                        self.write_metrics(eval_prefix="valid")
                     last_print.total = 0
                     self.reset_metrics()
                 if interval_due(fired, "snapshot",
@@ -413,13 +426,24 @@ class DenoiserTrainer(EvaluatorBase):
         finally:
             restore_handlers()
 
+    def _stop_agreed(self) -> bool:
+        """The stop flag, set on any rank of a mesh (every rank stops at the
+        same boundary)."""
+        if self.mesh is None:
+            return self._stop_requested
+        return self.mesh.any(self._stop_requested)
+
     def next_batch(self, batch_size: int) -> Dict[str, torch.Tensor]:
         """The data plane's next batch: the sampler's indices, or the
-        pipeline's own draw where there is no sampler (folders)."""
+        pipeline's own draw where there is no sampler (folders).  Each rank
+        of a mesh draws the same global batch and keeps its rows, so the
+        data state stays global."""
         if self.train_sampler is None:
-            return self.patch_pipeline.batch(batch_size)
-        return self.patch_pipeline.batch(
-            self.train_sampler.sample_batch(batch_size))
+            batch = self.patch_pipeline.batch(batch_size)
+        else:
+            batch = self.patch_pipeline.batch(
+                self.train_sampler.sample_batch(batch_size))
+        return batch if self.mesh is None else self.mesh.local(batch)
 
     def _chunk_steps(self, iteration: int, batch_size: int) -> int:
         """Steps until the next eval/print/snapshot/end boundary
@@ -520,7 +544,10 @@ class DenoiserTrainer(EvaluatorBase):
     def snapshot(self, output_name: str = None, subdir: str = None,
                  model_only: bool = False):
         """Parity: train.py:1366-1399: `training_jt`/`model_jt` in joint
-        mode, `training_dn`/`model_dn` in denoise mode."""
+        mode, `training_dn`/`model_dn` in denoise mode.  Rank 0 alone
+        writes; every rank holds the same state."""
+        if not self.is_main:
+            return
         if subdir is None:
             suffix = "jt" if self.mode == "joint" else "dn"
             subdir = ("model_" if model_only else "training_") + suffix
@@ -567,14 +594,14 @@ class DenoiserTrainer(EvaluatorBase):
         weights into a fresh Denoiser; returns the loaded state."""
         state = path_or_state
         if isinstance(state, str):
-            state = ckpt.load(state)
+            state = ckpt.load(state, mode=self.mode)
         self.cfg = state["cfg"]
         self.mode = state.get("mode", self.mode) or self.mode
         self.alpha = float(self.cfg.get(ConfigValue.ALPHA, self.alpha))
         self.tau = float(self.cfg.get(ConfigValue.TAU, self.tau))
-        self._check_mesh()
-        self.denoiser = Denoiser(self.cfg, mode=self.mode, device=self.device)
+        self.denoiser = self._new_denoiser()
         self.denoiser.load_variables(state["trainable"], state["static"])
+        self._sync_ranks()
         return state
 
     def load_state_dict(self, path_or_state):
@@ -664,6 +691,9 @@ class DenoiserTrainer(EvaluatorBase):
             seconds_to_dhms(total.total, trim=False), eta)
 
     def reset_metrics(self, eval: bool = True, train: bool = True):
+        if eval:
+            self._eval_merge_base = None
+
         def reset(metric_dict):
             metric_dict["n"] = 0
             for metric in metric_dict.values():
@@ -695,11 +725,31 @@ class DenoiserTrainer(EvaluatorBase):
 
 
 def resume_run(run_dir: str, iteration: int = None, mode: str = None,
-               device=None) -> DenoiserTrainer:
+               device=None, mesh=None) -> DenoiserTrainer:
     """Resume training from a `.training` snapshot, the latest by default
-    or ``model_{iteration:08d}.training`` (train.py:1656-1699)."""
+    or ``model_{iteration:08d}.training`` (train.py:1656-1699), on one
+    device or on the ranks of ``mesh``: the data state is global, so a run
+    resumes at any number of ranks."""
+    path, mode = resume_path(run_dir, iteration, mode)
     run_dir = os.path.abspath(run_dir)
     runs_dir = os.path.abspath(os.path.join(run_dir, ".."))
+    logger.info("Loading from '%s'...", path)
+    trainer = DenoiserTrainer(None, mode=mode, runs_dir=runs_dir,
+                              run_dir=os.path.basename(run_dir), device=device,
+                              mesh=mesh)
+    trainer.load_state_dict(path)
+    logger.info("Loaded training state.")
+    for timing in trainer.state[StateValue.HISTORY][
+            HistoryValue.TIMINGS].values():
+        if isinstance(timing, TrackedTime):
+            timing.forget()
+    return trainer
+
+
+def resume_path(run_dir: str, iteration: int = None, mode: str = None):
+    """(snapshot path, mode) a resume of ``run_dir`` loads: the mode from
+    the snapshot dir present, the latest snapshot unless ``iteration``."""
+    run_dir = os.path.abspath(run_dir)
     if mode is None:
         if os.path.isdir(os.path.join(run_dir, "training_jt")):
             mode = "joint"
@@ -717,13 +767,4 @@ def resume_run(run_dir: str, iteration: int = None, mode: str = None,
             raise FileNotFoundError(
                 f"no snapshot for iteration {iteration} under "
                 f"{os.path.join(run_dir, subdir)}")
-    logger.info("Loading from '%s'...", path)
-    trainer = DenoiserTrainer(None, mode=mode, runs_dir=runs_dir,
-                              run_dir=os.path.basename(run_dir), device=device)
-    trainer.load_state_dict(path)
-    logger.info("Loaded training state.")
-    for timing in trainer.state[StateValue.HISTORY][
-            HistoryValue.TIMINGS].values():
-        if isinstance(timing, TrackedTime):
-            timing.forget()
-    return trainer
+    return path, mode

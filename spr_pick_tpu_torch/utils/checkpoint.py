@@ -14,9 +14,10 @@ Loading goes through an unpickler that resolves every global itself:
     a tuple that keeps the class name;
   * numpy's array and dtype reconstructors.
 
-Anything else (another ``spr_pick_tpu``, ``jax`` or ``flax`` global, or a
-reference PyTorch checkpoint, which needs ``compat.py``: a later slice) is
-refused with a clear error.
+Anything else (another ``spr_pick_tpu``, ``jax`` or ``flax`` global) is
+refused with a clear error.  A reference PyTorch checkpoint (torch's zip
+archive or legacy stream) goes to `compat.py`, which reads it with its own
+restricted unpickler (`utils/ref_pickle.py`).
 
 `save_weights` and `save_training` write the same dict layout, and write
 the globals under the JAX package's names: each enum class as
@@ -83,6 +84,12 @@ ScaleByAdamState = _opt_state_class("ScaleByAdamState")
 
 _NUMPY_MODULES = ("numpy", "numpy.core.multiarray", "numpy._core.multiarray",
                   "numpy.core.numeric", "numpy._core.numeric")
+
+
+def is_numpy_global(module: str) -> bool:
+    """Whether an unpickler may resolve globals of ``module``: numpy's
+    array, dtype and scalar reconstructors and its RNG states."""
+    return module in _NUMPY_MODULES or module.startswith("numpy.random")
 _PARAMS_MODULES = ("spr_pick_tpu.params", "spr_pick_tpu_torch.params")
 
 
@@ -94,7 +101,7 @@ class _Unpickler(pickle.Unpickler):
                 return enum
         elif module.startswith("optax.") and name.endswith("State"):
             return _opt_state_class(name, module)
-        elif module in _NUMPY_MODULES or module.startswith("numpy.random"):
+        elif is_numpy_global(module):
             return super().find_class(module, name)
         raise CheckpointError(
             f"checkpoint references {module}.{name}, which the PyTorch port "
@@ -103,20 +110,37 @@ class _Unpickler(pickle.Unpickler):
         )
 
 
-def load(path: str) -> Dict[str, Any]:
+def load(path: str, mode: str = "joint") -> Dict[str, Any]:
     """Load a `.wt` or `.training` file as a dict of numpy trees.
 
-    The cfg comes back keyed by this package's enums.
+    The cfg comes back keyed by this package's enums.  A reference PyTorch
+    checkpoint (a torch zip archive, or torch's legacy stream, whose first
+    record is its magic number) is read and converted by
+    `compat.load_reference_checkpoint` in the mode ``mode``
+    (spr_pick_tpu/utils/checkpoint.py:72-116); the port's own files record
+    their mode.
     """
+    from spr_pick_tpu_torch import compat
+
     with open(path, "rb") as f:
         if f.read(2) == _ZIP_MAGIC:
-            raise CheckpointError(
-                f"{path!r} is a PyTorch zip checkpoint (a reference "
-                "checkpoint); converting those is compat.py, which the port "
-                "does not have yet — convert it with the JAX package first"
-            )
+            return compat.load_reference_checkpoint(path, mode=mode)
         f.seek(0)
-        state = _Unpickler(f).load()
+        try:
+            state = _Unpickler(f).load()
+        except CheckpointError:
+            raise
+        except Exception as exc:
+            try:
+                return compat.load_reference_checkpoint(path, mode=mode)
+            except Exception as ref_exc:
+                raise CheckpointError(
+                    f"could not load checkpoint {path!r}: not a .wt/.training "
+                    f"pickle ({type(exc).__name__}: {exc}), and loading it "
+                    "as a reference PyTorch checkpoint failed too (see the "
+                    "chained error)") from ref_exc
+    if compat.is_legacy_torch_magic(state):
+        return compat.load_reference_checkpoint(path, mode=mode)
     if not isinstance(state, dict) or "trainable" not in state:
         raise CheckpointError(
             f"{path!r} is not a .wt/.training checkpoint (no 'trainable' tree)"

@@ -138,13 +138,18 @@ def test_port_writer_round_trip(jax_state, tmp_path):
 
 @pytest.mark.parametrize("payload", ["jax_function", "os_call", "zip"])
 def test_foreign_checkpoint_is_refused(tmp_path, payload):
+    """A pickle naming a global the loader does not map is refused; so is
+    a truncated torch zip archive, which the loader hands to the reference
+    reader (`compat.py`, `tests/test_torch_compat.py`)."""
     path = str(tmp_path / "bad.wt")
     if payload == "zip":
         with open(path, "wb") as f:
             f.write(b"PK\x03\x04not-a-pickle")
+        match = "not a readable PyTorch checkpoint"
     else:
         obj = jax_cfg.base if payload == "jax_function" else os.getcwd
         with open(path, "wb") as f:
             pickle.dump({"trainable": {}, "cfg": obj}, f, protocol=4)
-    with pytest.raises(ckpt.CheckpointError):
+        match = "does not load"
+    with pytest.raises(ckpt.CheckpointError, match=match):
         ckpt.load(path)

@@ -2,9 +2,9 @@
 reading what they write.
 
 The port's command trains on the CPU only when asked (``--device cpu``);
-without the flag and without a GPU both subcommands raise, and
-``--dn_only`` on an HDF5 dataset and ``--mesh 2`` are refused naming their
-ROADMAP items.  A
+without the flag and without a GPU both subcommands raise,
+``--dn_only`` on an HDF5 dataset is refused naming its ROADMAP item, and
+``--mesh 2`` with one card exits naming both counts.  A
 run started by the command (bf16 compute, the default, batch 4, 8
 iterations, a snapshot at 4) is resumed by the command from its snapshot
 at 4 and must end on the same weights, bit for bit (one process, one CPU).
@@ -101,12 +101,18 @@ def test_without_a_gpu_both_commands_raise(dataset, run, tmp_path,
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--dn_only", "-t", "train.h5"], "ROADMAP.md §1 item 10"),
-    (["--mesh", "2"], "ROADMAP.md §1 item 6"),
+    (["--device", "cpu", "--dn_only", "-t", "train.h5"],
+     "ROADMAP.md §1 item 10"),
+    (["--mesh", "2"], "--mesh 2: 2 GPUs are needed, 1 visible"),
 ])
-def test_refusals(dataset, tmp_path, extra, match):
+def test_refusals(dataset, tmp_path, monkeypatch, extra, match):
+    """HDF5 is not ported; ``--mesh 2`` on a host with one card exits
+    naming both counts (``--mesh 2 --device cpu`` trains on two gloo
+    ranks: `tests/test_torch_ddp.py`)."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(SystemExit, match=match):
-        cli.start(start_args(dataset, tmp_path, "--device", "cpu", *extra))
+        cli.start(start_args(dataset, tmp_path, *extra))
+    assert not (tmp_path / RUN).exists()
 
 
 def test_module_entry_point(dataset, tmp_path):

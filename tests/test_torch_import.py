@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: it imports nothing of the JAX package
-(nor jax, flax or optax), runs on the GPU unless asked for the CPU, and
+(nor jax, flax or optax, nor the reference package `spr_pick`, whose
+checkpoints it reads), runs on the GPU unless asked for the CPU, and
 sends CPU tensors to K1's plain version."""
 
 import os
@@ -27,7 +28,8 @@ for m in pkgutil.walk_packages(spr_pick_tpu_torch.__path__, "spr_pick_tpu_torch.
     importlib.import_module(m.name)
 bad = sorted(
     k for k in sys.modules
-    if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "spr_pick_tpu")
+    if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "spr_pick_tpu",
+                           "spr_pick")
 )
 mods = sorted(k for k in sys.modules if k.startswith("spr_pick_tpu_torch"))
 print("IMPORTED", len(mods))
@@ -56,12 +58,15 @@ def test_port_imports_no_jax_in_a_fresh_process():
             "spr_pick_tpu_torch.utils.profiling",
             "spr_pick_tpu_torch.data.noise", "spr_pick_tpu_torch.data.n2v",
             "spr_pick_tpu_torch.data.noisy", "spr_pick_tpu_torch.data.crop",
-            "spr_pick_tpu_torch.data.patches"} <= mods
+            "spr_pick_tpu_torch.data.patches", "spr_pick_tpu_torch.compat",
+            "spr_pick_tpu_torch.utils.ref_pickle",
+            "spr_pick_tpu_torch.parallel.mesh",
+            "spr_pick_tpu_torch.parallel.dcn"} <= mods
 
 
 _FORBIDDEN = re.compile(
-    r"^\s*(?:from|import)\s+(?:spr_pick_tpu(?!_torch)\b|jax\b|jaxlib\b|"
-    r"flax\b|optax\b)",
+    r"^\s*(?:from|import)\s+(?:spr_pick_tpu(?!_torch)\b|spr_pick\b|jax\b|"
+    r"jaxlib\b|flax\b|optax\b)",
     re.MULTILINE,
 )
 
