@@ -114,7 +114,27 @@ script then exits nonzero and prints no result):
      process a card) equals the one-card step, the ranks hold identical
      parameters, and the tiled 4096x5760 pick over D cards gives the
      one-card picks; samples/s at D and at 1.  Phases 10 and 11 run their
-     commands with ``--mesh 1``.
+     commands with ``--mesh 1``;
+ 13. ResNet6/16, the stitch detector, writers and metrics, tools: the
+     phase-3 weights in a `Detector(dense_impl="stitch")` against the
+     dilated detector, float32 (TF32 off) at 1024^2 and at 250x300 (padded
+     to 256x320): heatmaps within STITCH_ATOL, equal pick sets, K1 on the
+     stitch map equal to its plain version and launched by the stitch
+     pick; bf16 pick sets outside the +-0.02 band; both detectors' times
+     and peak memory at 1024^2 bf16; ResNet6 and ResNet16 strided and dense
+     at 256^2, card against CPU in float32; phase 10's trained `.wt` picks
+     the validation micrograph in float32 and bf16, the picks go through
+     all five coordinate writers and back, and precision/recall/F1 against
+     the planted particles and bf16 against float32 outside the band are
+     printed (findings, not gates; at F1 = 1.0 the bf16-classifier fault
+     is run against both rules); then, where pandas and PIL cannot be
+     imported, `tools.generate_train_files` on phase 10's set (its
+     manifests equal phase 10's and train one iteration), `tools.
+     convert_to_star` on phase 8's `_scores.txt` equal to `eval
+     --export_star`'s `.star`, and the HDF5 route
+     (`tools.dataset_tool_h5`, `train start --dn_only -t x.h5`, `eval -d
+     x.h5`) where h5py imports, else both commands stopping with the h5py
+     ImportError.
 
 The weights are random, made from a seed.  The detector's 1x1 classifier
 takes the absolute value of its random weights and a scale and bias fitted
@@ -478,6 +498,15 @@ def compare_bf16_f32(bf, f32, shape) -> str:
     return msg
 
 
+def classifier_bf16(model) -> None:
+    """A planted fault: the detector's 1x1 classifier, float32 by design,
+    computed in bf16."""
+    from spr_pick_tpu_torch.models.blindspot import conv2d
+
+    cls = model.detector.classifier
+    cls.forward = lambda z: conv2d(z, cls.classifier, torch.bfloat16)
+
+
 def planted_faults(path: str, mic: str, f32, bf) -> None:
     """The bf16 comparison on bf16 paths with a planted fault.  Each fault
     is made on a fresh Picker here, never in the package:
@@ -492,7 +521,6 @@ def planted_faults(path: str, mic: str, f32, bf) -> None:
     from types import MethodType
 
     from spr_pick_tpu_torch.api import Picker
-    from spr_pick_tpu_torch.models.blindspot import conv2d
 
     def no_cast_head(unet, h):
         h = unet._conv("out_block_conv1", unet._conv("out_block_conv0", h))
@@ -501,10 +529,6 @@ def planted_faults(path: str, mic: str, f32, bf) -> None:
     def head_without_cast(model):
         unet = model.denoise_branch
         unet.head = MethodType(no_cast_head, unet)
-
-    def classifier_bf16(model):
-        cls = model.detector.classifier
-        cls.forward = lambda z: conv2d(z, cls.classifier, torch.bfloat16)
 
     def unet_weights_e4m3(model):
         with torch.no_grad():
@@ -741,6 +765,29 @@ def command(*args) -> float:
     return time.perf_counter() - t0
 
 
+_BLOCKED_TOOL = (
+    "import runpy, sys\n"
+    "sys.modules['pandas'] = None\n"
+    "sys.modules['PIL'] = None\n"
+    "name = 'spr_pick_tpu_torch.tools.' + sys.argv[1]\n"
+    "sys.argv = [name] + sys.argv[2:]\n"
+    "runpy.run_module(name, run_name='__main__')\n"
+)
+
+
+def tool(name: str, *args) -> str:
+    """Run `python -m spr_pick_tpu_torch.tools.<name> ...` where pandas and
+    PIL cannot be imported; returns what it printed."""
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_TOOL, name, *args],
+        env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+        text=True, timeout=600,
+    )
+    if out.returncode != 0:
+        raise AssertionError(f"tool {name} failed: {out.stderr[-3000:]}")
+    return out.stdout
+
+
 def read_rows(path: str):
     with open(path) as f:
         return [line.rstrip("\n").split("\t") for line in f if line.strip()]
@@ -787,11 +834,12 @@ def contam_k1_check(nms_cuda, maps, masks, radius: int, label: str) -> float:
 
 
 def commands_phase(Picker, path: str, mics: dict, tmp: str, nms_cuda,
-                   radius: int) -> float:
+                   radius: int):
     """Phase 8: `pick` and `eval` as a user runs them, without pandas or
     PIL, against the Picker in this process (float32, TF32 at PyTorch's
     defaults, as in the subprocesses); K1 on the contamination masks that
-    `eval --exclude_contam` seeds it with.  Returns K1's max_abs_err."""
+    `eval --exclude_contam` seeds it with.  Returns K1's max_abs_err and
+    the eval command's run dir."""
     from spr_pick_tpu_torch.data import mrc
     from spr_pick_tpu_torch.ops.algorithms import find_contamination
     from spr_pick_tpu_torch.ops.nms import nms_to_host
@@ -882,7 +930,7 @@ def commands_phase(Picker, path: str, mics: dict, tmp: str, nms_cuda,
         f"seeded with find_contamination "
         f"({sum(len(w) for w in want_contam.values())} picks); seconds each, "
         f"process start included: {', '.join(f'{s:.1f}' for s in secs)}")
-    return err
+    return err, os.path.join(f"{out}_runs", run_dir)
 
 
 class TiledTimer:
@@ -1176,7 +1224,7 @@ def training_commands(paths, tmp: str, Picker) -> dict:
     """`train start` at the defaults (bf16, batch 16, patch 64) to 320
     iterations in a subprocess, then `train resume` of a copy from its
     snapshot at 160, in this process (the command's own function: a second
-    process start costs ~10 s)."""
+    process start costs ~10 s).  Returns the started run's dir."""
     import shutil
 
     from spr_pick_tpu_torch.cli import cli
@@ -1236,7 +1284,7 @@ def training_commands(paths, tmp: str, Picker) -> dict:
         f"{first['step']} -> {last['value']:.4f} at {last['step']} (a "
         f"finding, not a gate); resumed vs uninterrupted final weights max "
         f"|diff| {drift:.3e} (cuDNN and bf16 rounding, not held)")
-    return secs
+    return run
 
 
 def k1_in_training(paths, tmp: str, nms_cuda, radius: int, mesh=None):
@@ -2055,6 +2103,395 @@ def ddp_phase(tmp: str, img: np.ndarray, paths, frame: str, Picker,
     return ranks[0]["launches"]
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the stitch detector, ResNet6/16, writers and metrics, tools
+# ---------------------------------------------------------------------------
+
+# float32 with TF32 off: the stitch detector's heatmap against the dilated
+# detector's.  The same weights run through other conv shapes (strided
+# convs on 16 shifted crops against dilated stride-1 convs), so the maps
+# differ by float32 accumulation order only (a few 1e-7 on the CPU,
+# tests/test_torch_resnet_variants.py).
+STITCH_ATOL = 1e-4
+# ResNet6/16 card against CPU, float32 with TF32 off: the largest deviation
+# over the output's largest magnitude (cuDNN against oneDNN accumulation).
+VARIANT_RTOL = 1e-4
+F1_RADIUS = 15      # px: precision_recall_f1 against the planted particles
+BOX_SIZE = 40       # even, so a box's centre is its pick
+
+
+def tf32(on: bool) -> None:
+    torch.backends.cudnn.allow_tf32 = on
+    torch.backends.cuda.matmul.allow_tf32 = on
+
+
+def stitch_picker(Picker, path: str, **kw):
+    """A Picker on ``path`` whose detector is a `Detector(dense_impl=
+    "stitch")` holding the same weights."""
+    from spr_pick_tpu_torch.models.joint import Detector
+
+    picker = Picker(path, **kw)
+    model = picker.denoiser.model
+    old = model.detector
+    det = Detector(dtype=old.dtype, in_channels=old.input_bn.num_features,
+                   dense_impl="stitch")
+    det.load_state_dict(old.state_dict())
+    model.detector = det.to(picker.device).eval()
+    return picker
+
+
+def forward_map(picker, image):
+    """(heatmap (h, w) on the device, shape) of one dense forward."""
+    outputs, shape = picker._forward([picker._load(image, False)])
+    return picker._heatmaps(outputs, shape)[0], shape
+
+
+def stitch_phase(Picker, paths, mic: str, nms_cuda, radius: int, gpu: str):
+    """13a.  The stitch detector against the dilated one from the same
+    `.wt`: float32 maps and picks at 1024^2 and on the 250x300 parity
+    micrograph (padded to 256x320), K1 on the stitch map, bf16 pick sets,
+    and the two detectors' times and peak memory.  Returns (K1's launches
+    in the stitch pick, K1's max_abs_err)."""
+    from spr_pick_tpu_torch.ops.dense_unet import dense_blindspot_unet
+
+    tf32(False)
+    dilated = Picker(paths["zero_f32"], border=0)
+    stitch = stitch_picker(Picker, paths["zero_f32"], border=0)
+    err = 0.0
+    small = micrograph(PARITY_SHAPE, SEED + 1)
+    for label, image in ((f"{SIZE}^2", mic),
+                         (f"{PARITY_SHAPE[0]}x{PARITY_SHAPE[1]}", small)):
+        hm_d, shape = forward_map(dilated, image)
+        hm_s, _ = forward_map(stitch, image)
+        dev = float((hm_s - hm_d).abs().max())
+        if not dev <= STITCH_ATOL:
+            raise AssertionError(f"stitch vs dilated float32 heatmap {label}: "
+                                 f"max |diff| {dev:.3e} > {STITCH_ATOL}")
+        before = nms_cuda.greedy_nms_cuda.launches
+        got = stitch.pick_arrays(image)
+        if nms_cuda.greedy_nms_cuda.launches <= before:
+            raise AssertionError(f"the stitch pick {label} never launched K1")
+        want = dilated.pick_arrays(image)
+        check_picks(*got, f"stitch float32 {label}")
+        if not (np.array_equal(got[1], want[1])
+                and np.allclose(got[0], want[0], atol=1e-5, rtol=0)):
+            raise AssertionError(f"stitch vs dilated float32 picks {label}: "
+                                 f"{len(got[0])} vs {len(want[0])}")
+        maps = hm_s[None].contiguous()
+        k1 = nms_cuda.greedy_nms_cuda(maps, radius, THRESHOLD, BIG_CAP)
+        plain = nms_cuda.greedy_nms_plain(maps, radius, THRESHOLD, BIG_CAP)
+        if not all(torch.equal(a, b) for a, b in zip(k1, plain)):
+            raise AssertionError(f"K1 on the stitch map {label} differs from "
+                                 "the plain version")
+        err = max(err, float((k1[0] - plain[0]).abs().max()))
+        log(f"stitch vs dilated float32 {label}: heatmap max |diff| "
+            f"{dev:.3e} (tol {STITCH_ATOL}), {len(got[0])} picks equal, max "
+            f"score diff {float(np.abs(got[0] - want[0]).max()):.2e}; K1 on "
+            f"the stitch map == plain ({int(k1[2][0])} picks)")
+    tf32(True)
+
+    bf_d = Picker(paths["zero_bf16"], border=0).pick_arrays(mic)
+    bf_s = stitch_picker(Picker, paths["zero_bf16"], border=0).pick_arrays(mic)
+    frac, msg = matched_fraction(bf_s[:2], bf_d[:2], bf_d[2])
+    if frac < MIN_MATCHED:
+        raise AssertionError(f"stitch vs dilated bf16 pick sets diverge: {msg}")
+    log(f"stitch vs dilated bf16 {SIZE}^2: {len(bf_s[0])} vs {len(bf_d[0])} "
+        f"picks; {msg} (here 'bf16' is the stitch detector and 'float32' "
+        f"the dilated one)")
+
+    # The main path's bf16 weights: K1's launches in one stitch pick, and
+    # the two detectors' times and peak memory on the same sample z.
+    main_d = Picker(paths["main"])
+    main_s = stitch_picker(Picker, paths["main"])
+    nms_cuda.greedy_nms_cuda.launches = 0
+    picks = main_s.pick_arrays(mic)
+    launches = nms_cuda.greedy_nms_cuda.launches
+    if launches < 1:
+        raise AssertionError("the stitch pick never launched K1")
+    check_picks(*picks, "stitch bf16 pick")
+    inp = torch.from_numpy(main_d._load(mic, False)[None, :, :, None]).to(
+        main_d.device)
+    model = main_d.denoiser.model
+    with torch.inference_mode():
+        z = model.sample(dense_blindspot_unet(model.denoise_branch, inp),
+                         generator=torch.Generator(
+                             device=main_d.device).manual_seed(SEED))
+    rows = {}
+    for name, picker in (("dilated", main_d), ("stitch", main_s)):
+        det = picker.denoiser.model.detector
+
+        def run(det=det):
+            with torch.inference_mode():
+                return det(z, dense=True)
+
+        run()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        text, rows[name] = summary(cuda_ms(run))
+        pick_text, _ = summary(host_ms(lambda p=picker: p.pick_arrays(mic)))
+        log(f"timing {name} detector {SIZE}^2 bf16: {text}; peak device "
+            f"memory above its input {peak:.1f} MiB | {gpu}")
+        log(f"profile {name} detector {SIZE}^2 bf16: {profile_call(run)} | "
+            f"{gpu}")
+        log(f"timing pick {SIZE}^2 end to end with the {name} detector: "
+            f"{pick_text} | {gpu}")
+    log(f"stitch / dilated detector time {SIZE}^2 bf16: "
+        f"{rows['stitch'] / rows['dilated']:.3f}; K1 launches in the stitch "
+        f"pick {launches} | {gpu}")
+    return launches, err
+
+
+def variants_card_vs_cpu() -> None:
+    """13b.  ResNet6 and ResNet16 from seeded weights, float32 with TF32
+    off, strided and dense at 256^2: the card against the CPU."""
+    import copy
+
+    from spr_pick_tpu_torch.models import resnet
+
+    tf32(False)
+    x = torch.from_numpy(np.random.RandomState(SEED + 70).randn(
+        2, 1, 256, 256).astype(np.float32))
+    for cls in (resnet.ResNet6, resnet.ResNet16):
+        net = cls()
+        resnet.reset_parameters(net, torch.Generator().manual_seed(SEED))
+        net.eval()
+        card = copy.deepcopy(net).cuda()
+        for dense in (False, True):
+            with torch.no_grad():
+                want = net(x, dense)
+                got = card(x.cuda(), dense).cpu()
+            dev = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            mode = "dense" if dense else "strided"
+            if got.shape != want.shape or not dev <= VARIANT_RTOL * scale:
+                raise AssertionError(
+                    f"{cls.__name__} {mode} card vs CPU: max |diff| "
+                    f"{dev:.3e}, output max {scale:.3e}")
+            log(f"{cls.__name__} (width {cls.width}) {mode} float32 card vs "
+                f"CPU at 256^2: output {tuple(got.shape)}, max |diff| "
+                f"{dev:.3e} of max |out| {scale:.3e} (tol {VARIANT_RTOL} of "
+                f"it)")
+    tf32(True)
+
+
+def band_f1(a, b, shape):
+    """(F1, message): a's confident picks (star threshold + margin) matched
+    by Hungarian assignment within COORD_TOL px to b's picks above the star
+    threshold - margin, and b's to a's; the F1 of the two matched shares."""
+    from spr_pick_tpu_torch.ops.algorithms import match_coordinates
+
+    sa, ca = star_picks(*a, shape)
+    sb, cb = star_picks(*b, shape)
+    shares = []
+    for s1, c1, s2, c2 in ((sa, ca, sb, cb), (sb, cb, sa, ca)):
+        strong = c1[s1 >= STAR_THRESHOLD + MARGIN].astype(float)
+        loose = c2[s2 >= STAR_THRESHOLD - MARGIN].astype(float)
+        if len(strong) == 0:
+            raise AssertionError("no confident picks: the comparison is inert")
+        assignment, _ = match_coordinates(loose, strong, COORD_TOL)
+        shares.append(float(assignment.sum()) / len(strong))
+    p, r = shares
+    f1 = 2 * p * r / max(p + r, 1e-12)
+    return f1, (f"outside the +-{MARGIN} band: {p:.4f} and {r:.4f} of the "
+                f"confident picks matched within {COORD_TOL} px, F1 {f1:.4f}")
+
+
+def quality(picks, truth, label: str) -> str:
+    """Precision, recall and F1 of the border-filtered picks above the
+    picker's floor and above the star threshold."""
+    from spr_pick_tpu_torch.ops.algorithms import precision_recall_f1
+
+    scores, coords = star_picks(*picks)
+    parts = []
+    for threshold in (THRESHOLD, STAR_THRESHOLD):
+        keep = coords[scores > threshold].astype(float)
+        p, r, f1 = precision_recall_f1(truth, keep, F1_RADIUS)
+        parts.append(f"above {threshold}: {len(keep)} picks, precision "
+                     f"{p:.4f}, recall {r:.4f}, F1 {f1:.4f}")
+    return (f"{label} against {len(truth)} planted particles (radius "
+            f"{F1_RADIUS} px): " + "; ".join(parts))
+
+
+def writers_round_trip(picks, name: str, d: str) -> None:
+    """Write the picks in all five formats and read them back."""
+    from spr_pick_tpu_torch.data import files
+    from spr_pick_tpu_torch.data import table as tbl
+
+    scores, coords = picks[0], picks[1]
+    table = {"image_name": np.array([name] * len(scores), dtype=object),
+             "x_coord": coords[:, 0].astype(np.int64),
+             "y_coord": coords[:, 1].astype(np.int64),
+             "score": scores.astype(np.float32)}
+    os.makedirs(d)
+    back = {}
+    for fmt, out in (("coord", "picks.txt"), ("star", "picks.star"),
+                     ("csv", "picks.csv")):
+        files.write_coordinates(os.path.join(d, out), table, format=fmt,
+                                image_ext=".mrc")
+        back[fmt] = files.read_coordinates(os.path.join(d, out))
+    files.write_coordinates(d, table, format="box", boxsize=BOX_SIZE)
+    back["box"] = files.read_coordinates(os.path.join(d, f"{name}.box"))
+    files.write_coordinates(d, table, format="json")
+    with open(os.path.join(d, f"{name}_info.json")) as f:
+        boxes = json.load(f)["boxes"]
+    back["json"] = {"image_name": table["image_name"][: len(boxes)],
+                    "x_coord": np.array([b[0] for b in boxes]),
+                    "y_coord": np.array([b[1] for b in boxes])}
+    for fmt, got in back.items():
+        if tbl.num_rows(got) != len(scores):
+            raise AssertionError(f"{fmt}: {tbl.num_rows(got)} rows read back, "
+                                 f"{len(scores)} written")
+        keys = ["image_name", "x_coord", "y_coord"]
+        if fmt in ("coord", "star", "csv"):
+            keys.append("score")
+        for k in keys:
+            have, want = np.asarray(got[k]), table[k]
+            same = (np.array_equal(have.astype(str), want.astype(str))
+                    if k == "image_name" else
+                    np.array_equal(have.astype(want.dtype), want))
+            if not same:
+                raise AssertionError(f"{fmt} {k} differs after the round trip")
+    log(f"writers: {len(scores)} picks written as tsv, star, box ({BOX_SIZE} "
+        f"px), EMAN2 json and VIA csv and read back equal (box, json and csv "
+        f"hold integer coordinates, as these picks are)")
+
+
+def trained_phase(Picker, run: str, paths10, tmp: str) -> None:
+    """13c.  Phase 10's trained `.wt`: picks of the validation micrograph in
+    float32 and bf16, written in every format and read back; precision,
+    recall and F1 against the planted particles, and bf16 against float32
+    outside the band (findings, not gates)."""
+    val = os.path.join(os.path.dirname(paths10["val_images"]), "val44.mrc")
+    truth = np.array([[float(r[1]), float(r[2])]
+                      for r in read_rows(paths10["val_coords"])[1:]])
+    (final,) = [f for f in os.listdir(run) if f.startswith("final-")]
+    tf32(False)
+    f32 = Picker(f32_weights(run, tmp), border=0).pick_arrays(val)
+    tf32(True)
+    bf = Picker(os.path.join(run, final), border=0).pick_arrays(val)
+    check_picks(*f32, "trained float32")
+    check_picks(*bf, "trained bf16")
+    writers_round_trip(f32, "val44", os.path.join(tmp, "writers"))
+    log(quality(f32, truth, "trained weights float32"))
+    log(quality(bf, truth, "trained weights bf16"))
+    f1, msg = band_f1(bf[:2], f32[:2], f32[2])
+    _, floor_msg = matched_fraction(bf[:2], f32[:2], f32[2])
+    log(f"trained weights bf16 vs float32 {msg}; the phase-4 rule: "
+        f"{floor_msg}")
+    if f1 == 1.0:
+        picker = Picker(os.path.join(run, final), border=0)
+        classifier_bf16(picker.denoiser.model)
+        bad = picker.pick_arrays(val)
+        f1_bad, msg = band_f1(bad[:2], f32[:2], f32[2])
+        frac_bad, floor_msg = matched_fraction(bad[:2], f32[:2], f32[2])
+        log(f"trained weights, planted fault classifier in bf16: {msg} "
+            f"({'caught' if f1_bad < 1.0 else 'not caught'} by F1 = 1.0); "
+            f"the 0.8 floor: {floor_msg} "
+            f"({'caught' if frac_bad < MIN_MATCHED else 'not caught'})")
+
+
+def same_file(a: str, b: str) -> bool:
+    with open(a, "rb") as f, open(b, "rb") as g:
+        return f.read() == g.read()
+
+
+def tools_phase(paths10, eval8, paths, tmp: str) -> None:
+    """13d.  The tools in subprocesses where pandas and PIL cannot be
+    imported; the HDF5 route where h5py imports, else its ImportError."""
+    from spr_pick_tpu_torch.cli import cli
+
+    t0 = time.perf_counter()
+    trainset = os.path.dirname(paths10["train_images"])
+    prefix = os.path.join(tmp, "generated", "train")
+    printed = tool("generate_train_files", trainset, paths10["train_coords"],
+                   "-o", prefix)
+    images = read_rows(prefix + "_images.txt")
+    names = sorted(f[:-4] for f in os.listdir(trainset) if f.endswith(".mrc"))
+    if (images[0] != ["image_name", "path"]
+            or [r[0] for r in images[1:]] != names
+            or read_rows(prefix + "_coords.txt") != read_rows(
+                paths10["train_coords"])):
+        raise AssertionError(f"generate_train_files manifests differ: "
+                             f"{printed}")
+    runs = os.path.join(tmp, "generated_runs")
+    cli.start(["train", "start", "-a", "ssdn", "-n", "gauss", "--noise_value",
+               "const", "-t", prefix + "_images.txt", "-l",
+               prefix + "_coords.txt", "--alpha", "0.8", "--tau", "0.01",
+               "--iterations", "1", "--print_interval", "1",
+               "--eval_interval", "1000", "--checkpoint_interval", "1000",
+               "--runs_dir", runs, "--mesh", "1"])
+    (run,) = os.listdir(runs)
+    if not any(f.startswith("final-")
+               for f in os.listdir(os.path.join(runs, run))):
+        raise AssertionError("train start on the generated manifests wrote "
+                             "no final .wt")
+    secs = {"generate_train_files and train": time.perf_counter() - t0}
+
+    t0 = time.perf_counter()
+    eval_run = eval8
+    star = os.path.join(tmp, "converted.star")
+    tool("convert_to_star", os.path.join(eval_run, "eval_imgs"), "-o", star)
+    if not same_file(star, os.path.join(eval_run, "particles.star")):
+        raise AssertionError("convert_to_star differs from eval "
+                             "--export_star's particles.star")
+    secs["convert_to_star"] = time.perf_counter() - t0
+    log(f"tools without pandas or PIL: generate_train_files manifests "
+        f"({len(images) - 1} micrographs) equal phase 10's and train one "
+        f"iteration in train start; convert_to_star of phase 8's "
+        f"_scores.txt == eval --export_star's particles.star; seconds: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    hdf5_route(paths, trainset, tmp)
+
+
+def hdf5_route(paths, folder: str, tmp: str) -> None:
+    """Where h5py imports: `dataset_tool_h5` on ``folder``, `train start
+    --dn_only -t x.h5` (8 iterations) and `eval -d x.h5`.  Where it does
+    not, both commands must stop with the h5py ImportError."""
+    from spr_pick_tpu_torch.cli import cli
+
+    h5 = os.path.join(tmp, "x.h5")
+    runs = os.path.join(tmp, "h5_runs")
+    train = ["train", "start", "--dn_only", "-a", "n2v", "-n", "gauss25",
+             "-t", h5, "-l", "none", "--alpha", "0.8", "--tau", "0.01",
+             "--iterations", "8", "--print_interval", "8",
+             "--eval_interval", "1000", "--checkpoint_interval", "1000",
+             "--runs_dir", runs, "--mesh", "1"]
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        for args in (train, ["eval", "-m", paths["main"], "-d", h5,
+                             "--runs_dir", runs]):
+            try:
+                cli.start(args)
+            except ImportError as exc:
+                if "h5py is required" not in str(exc):
+                    raise
+            else:
+                raise AssertionError(f"{args[0]} on an .h5 without h5py "
+                                     "did not raise")
+        log("hdf5: h5py is not installed here; train start --dn_only -t x.h5 "
+            "and eval -d x.h5 stop with 'h5py is required for HDF5 datasets "
+            "but is not installed'; the HDF5 route is held on the CPU by "
+            "tests/test_torch_hdf5.py")
+        return
+    tool("dataset_tool_h5", folder, "-o", h5)
+    cli.start(train)
+    (run,) = os.listdir(runs)
+    (final,) = [f for f in os.listdir(os.path.join(runs, run))
+                if f.startswith("final-")]
+    ev = os.path.join(tmp, "h5_eval")
+    cli.start(["eval", "-m", os.path.join(runs, run, final), "-d", h5,
+               "--runs_dir", ev])
+    (run_ev,) = os.listdir(ev)
+    log(f"hdf5: dataset_tool_h5, then train start --dn_only -t x.h5 (8 "
+        f"iterations), then eval -d x.h5: "
+        f"{len(os.listdir(os.path.join(ev, run_ev, 'eval_imgs')))} images")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the port on "
@@ -2238,8 +2675,8 @@ def main() -> int:
 
         # 8. The commands, without pandas or PIL, float32; K1 on the
         # contamination masks that eval seeds it with.
-        err = commands_phase(Picker, paths["zero_f32"], mics, tmp, nms_cuda,
-                             radius)
+        err, eval8 = commands_phase(Picker, paths["zero_f32"], mics, tmp,
+                                    nms_cuda, radius)
         max_abs_err = max(max_abs_err, err)
 
         # 9. Timings of the tiled pick, K1 on its map, eval, profiles.  K1
@@ -2280,7 +2717,7 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = True
         torch.backends.cuda.matmul.allow_tf32 = True
         paths10 = write_training_set(os.path.join(tmp, "trainset"))
-        training_commands(paths10, tmp, Picker)
+        run10 = training_commands(paths10, tmp, Picker)
         trainer, launches_in_training = k1_in_training(paths10, tmp,
                                                        nms_cuda, radius)
         time_training(trainer, gpu)
@@ -2299,6 +2736,16 @@ def main() -> int:
         launches_in_ddp = ddp_phase(tmp, img, paths, frame, Picker, trainer,
                                     gpu)
         log(f"phase 12 took {time.perf_counter() - t0:.1f} s")
+
+        # 13. The stitch detector, ResNet6/16, writers and metrics, tools.
+        t0 = time.perf_counter()
+        launches_in_stitch, err = stitch_phase(Picker, paths, mic, nms_cuda,
+                                               radius, gpu)
+        max_abs_err = max(max_abs_err, err)
+        variants_card_vs_cpu()
+        trained_phase(Picker, run10, paths10, tmp)
+        tools_phase(paths10, eval8, paths, tmp)
+        log(f"phase 13 took {time.perf_counter() - t0:.1f} s")
 
     h, w = shape
     bound_ms, bound_by = k1_bound(h, w, k, count, radius)
@@ -2329,6 +2776,7 @@ def main() -> int:
         "launches_in_denoise_training": launches_in_denoise,
         "launches_in_reference_pick": launches_in_reference,
         "launches_in_ddp_validation": launches_in_ddp,
+        "launches_in_stitch_pick": launches_in_stitch,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,9 +14,9 @@ The port of `spr_pick_tpu/cli/cli.py`: the same subcommands, flags,
 defaults and outputs, plus ``--device`` (the GPU unless given).  No
 command needs pandas or PIL: tables are read and written with the `csv`
 module and PNGs with `zlib`.  `train start --dn_only` trains the
-denoise-only algorithms on a folder of micrographs (or ssdn on a TXT
-manifest); ``-l/--alpha/--tau`` stay required there, as in the JAX
-command.  HDF5 datasets are refused, naming their ROADMAP item.
+denoise-only algorithms on a folder of micrographs or an HDF5 file (or
+ssdn on a TXT manifest); ``-l/--alpha/--tau`` stay required there, as in
+the JAX command.  HDF5 datasets need h5py, imported when one is opened.
 
 ``train --mesh D`` trains data-parallel on D ranks, one process a GPU
 (NCCL), started here; the default is every visible GPU, and with
@@ -56,7 +56,7 @@ def _add_device_arg(parser: argparse.ArgumentParser) -> None:
 def _add_shared_args(parser: argparse.ArgumentParser, start: bool):
     parser.add_argument("--train_dataset", "-t", required=start,
                         help="Path to training dataset (TXT manifest, or a "
-                        "folder of images with --dn_only).")
+                        "folder of images or an .h5 file with --dn_only).")
     parser.add_argument("--alpha", "-ap", type=float, required=start,
                         help="alpha value (denoise-vs-detect blend)")
     parser.add_argument("--tau", "-tau", type=float, required=start,
@@ -244,11 +244,6 @@ def _apply_shared(cfg: Dict, trainer, args: Dict):
     trainer.tau = float(cfg[ConfigValue.TAU])
 
 
-def _is_hdf5(path: str) -> bool:
-    """The dataset type `cfg.infer_datasets` gives ``path``."""
-    return not os.path.isdir(path) and not path.endswith(".txt")
-
-
 def _mesh_size(args: Dict) -> int:
     """The ranks ``train`` runs on: ``--mesh``, else a resumed run's
     MESH_SHAPE, resolved as the JAX trainer does (`parallel/mesh.py`)."""
@@ -327,10 +322,6 @@ def _train(args: Dict, mesh):
                     "(--dn_only): the joint micrograph path adds no "
                     "synthetic noise")
             cfg[ConfigValue.NOISE_INPUT] = True
-        if args["dn_only"] and _is_hdf5(args["train_dataset"]):
-            raise SystemExit(
-                f"{args['train_dataset']}: HDF5 training datasets are not "
-                "ported yet (ROADMAP.md §1 item 10); pass a folder of images")
         trainer = DenoiserTrainer(
             cfg, mode="denoise" if args["dn_only"] else "joint",
             alpha=args["alpha"], tau=args["tau"],

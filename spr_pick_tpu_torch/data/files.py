@@ -1,9 +1,10 @@
-"""Format-sniffing coordinate table reader, without pandas.
+"""Format-sniffing coordinate table reader and writer, without pandas.
 
-The PyTorch port of `spr_pick_tpu/data/files.py:read_coordinates` and the
-readers it dispatches to (parity: `spr_pick/utils/files.py`): .star, .box
-(EMAN), .csv (VIA) and .txt/.tab TSV.  Tables are `data/table.py` column
-dicts.
+The PyTorch port of `spr_pick_tpu/data/files.py` (parity:
+`spr_pick/utils/files.py:13-234`): `read_coordinates` reads .star, .box
+(EMAN), .csv (VIA) and .txt/.tab TSV; `write_coordinates` writes TSV, star,
+one .box or EMAN2 `_info.json` an image, or VIA csv, with the bytes the
+pandas version writes.  Tables are `data/table.py` column dicts.
 """
 
 from __future__ import annotations
@@ -11,11 +12,18 @@ from __future__ import annotations
 import csv
 import json
 import os
+from collections import Counter
 
 import numpy as np
 
 from spr_pick_tpu_torch.data import star
 from spr_pick_tpu_torch.data import table as tbl
+from spr_pick_tpu_torch.data.conversions import (
+    boxes_to_coordinates,
+    coordinates_to_boxes,
+    coordinates_to_eman2_json,
+    coordinates_to_star,
+)
 
 PARTICLE_FORMAT_MAP = {
     ".star": "star",
@@ -51,15 +59,6 @@ def read_box(path: str) -> np.ndarray:
             if line.strip():
                 rows.append([int(t) for t in line.split()[:4]])
     return np.array(rows, dtype=int).reshape(-1, 4)
-
-
-def boxes_to_coordinates(boxes: np.ndarray, image_name: str) -> tbl.Table:
-    """EMAN box rows (x_lo, y_lo, w, h) -> centre coordinates."""
-    return {
-        "image_name": np.array([image_name] * len(boxes), dtype=object),
-        "x_coord": boxes[:, 0] + boxes[:, 2] // 2,
-        "y_coord": boxes[:, 1] + boxes[:, 3] // 2,
-    }
 
 
 def read_via_csv(path: str) -> tbl.Table:
@@ -109,8 +108,73 @@ def read_coordinates(path: str, format: str = "auto") -> tbl.Table:
             [strip_ext(str(n)) for n in table["image_name"]], dtype=object)
         return table
     if format == "box":
-        return boxes_to_coordinates(read_box(path),
-                                    os.path.basename(strip_ext(path)))
+        return boxes_to_coordinates(
+            read_box(path), image_name=os.path.basename(strip_ext(path)))
     if format == "csv":
         return read_via_csv(path)
     return tbl.read_tsv(path)
+
+
+def write_via_csv(path: str, table: tbl.Table) -> None:
+    """VIA csv: one row a point, its image's point count and its index
+    among them, the point and its score as JSON cells."""
+    names = [str(n) for n in table["image_name"]]
+    counts = Counter(names)
+    seen = Counter()
+    region_id = []
+    for n in names:
+        region_id.append(seen[n])
+        seen[n] += 1
+    x, y = table["x_coord"], table["y_coord"]
+    with open(path, "w", newline="") as f:
+        writer = csv.writer(f, lineterminator="\n")
+        writer.writerow(["filename", "file_size", "file_attributes",
+                         "region_count", "region_id",
+                         "region_shape_attributes", "region_attributes"])
+        for i, n in enumerate(names):
+            shape = '{{"name":"point","cx":{},"cy":{}}}'.format(x[i], y[i])
+            att = ('{{"score":"{}"}}'.format(table["score"][i])
+                   if "score" in table else "{}")
+            writer.writerow([n + ".png", -1, "{}", counts[n], region_id[i],
+                             shape, att])
+
+
+def write_coordinates(path: str, table: tbl.Table, format: str = "auto",
+                      boxsize: int = 0, image_ext: str = ".mrc",
+                      suffix: str = "") -> None:
+    """Write ``table`` (image_name, x_coord, y_coord[, score]) as
+    ``format``: "box" and "json" write one file an image into the
+    directory ``path`` (``{image}{suffix}.box`` with ``boxsize`` boxes,
+    ``{image}{suffix}_info.json``), in sorted image order; "star" (names
+    get ``image_ext``), "csv" (VIA) and anything else (TSV) write ``path``.
+    """
+    if format in ("box", "json"):
+        names = np.asarray([str(n) for n in table["image_name"]])
+        xy = np.stack([np.asarray(table["x_coord"]),
+                       np.asarray(table["y_coord"])], axis=1)
+        for image_name in sorted(set(names)):
+            group = xy[names == image_name]
+            if format == "box":
+                this_path = os.path.join(path, image_name + suffix + ".box")
+                boxes = coordinates_to_boxes(group.astype(np.int32), boxsize,
+                                             boxsize)
+                with open(this_path, "w") as f:
+                    for row in boxes:
+                        f.write("\t".join(str(v) for v in row) + "\n")
+            else:
+                this_path = os.path.join(path,
+                                         image_name + suffix + "_info.json")
+                with open(this_path, "w") as f:
+                    json.dump({"boxes": coordinates_to_eman2_json(
+                        group.astype(int))}, f, indent=0)
+    elif format == "star":
+        with open(path, "w") as f:
+            star.write(coordinates_to_star(table, image_ext=image_ext), f)
+    elif format == "csv":
+        write_via_csv(path, table)
+    else:
+        columns = ["image_name", "x_coord", "y_coord"]
+        if "score" in table:
+            columns.append("score")
+        with open(path, "w") as f:
+            tbl.write_tsv(f, {k: table[k] for k in columns})

@@ -8,11 +8,13 @@ discovery; images load lazily as float32 numpy arrays.
 from __future__ import annotations
 
 import os
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
 
 from spr_pick_tpu_torch.data.loader import load_image
+from spr_pick_tpu_torch.data.mrc import HEADER_DTYPE
+from spr_pick_tpu_torch.params import DatasetType
 
 EXTENSIONS = (".mrc", ".tif", ".tiff", ".png", ".jpg", ".jpeg", ".bmp", ".ppm")
 
@@ -49,3 +51,30 @@ class UnlabelledImageFolderDataset:
 
     def __getitem__(self, index: int) -> np.ndarray:
         return load_image(self.paths[index], standardize=self.standardize)
+
+    def image_size(self, index: int) -> Tuple[int, int]:
+        """(H, W) from the MRC header without decoding the image; other
+        formats through PIL, imported here."""
+        path = self.paths[index]
+        if path.lower().endswith(".mrc"):
+            with open(path, "rb") as f:
+                header = np.frombuffer(f.read(1024), dtype=HEADER_DTYPE)[0]
+            return int(header["ny"]), int(header["nx"])
+        from PIL import Image
+
+        with Image.open(path) as im:
+            w, h = im.size
+        return h, w
+
+
+def image_dataset(dtype, path: str, channels: int):
+    """The unlabelled image dataset at ``path``: a folder of images, or an
+    HDF5 file (h5py imported there) (train.py:336-348, 392-404)."""
+    if dtype == DatasetType.FOLDER:
+        return UnlabelledImageFolderDataset(path, recursive=True,
+                                            channels=channels)
+    if dtype == DatasetType.HDF5:
+        from spr_pick_tpu_torch.data.hdf5 import HDF5Dataset
+
+        return HDF5Dataset(path, channels=channels)
+    raise NotImplementedError("Dataset type not implemented")

@@ -4,7 +4,8 @@ Parity: `spr_pick/utils/mrc.py:105-225` (hand-rolled header parse/write,
 modes 0/1/2/3/4/6/16).  Implemented with a numpy structured dtype over the
 1024-byte header instead of `struct` — same on-disk layout, zero-copy reads.
 
-The PyTorch port's copy of `spr_pick_tpu/data/mrc.py` (read, parse, write).
+The PyTorch port's copy of `spr_pick_tpu/data/mrc.py` (read, parse,
+`make_header`, write).
 """
 
 from __future__ import annotations
@@ -77,6 +78,41 @@ def read(path: str):
         return parse(f.read())
 
 
+def dtype_to_mode(dtype) -> int:
+    for mode, d in MODE_TO_DTYPE.items():
+        if np.dtype(dtype) == d:
+            return mode
+    raise ValueError(f"MRC incompatible dtype: {dtype}")
+
+
+def make_header(
+    shape,
+    cella=(1.0, 1.0, 1.0),
+    cellb=(0.0, 0.0, 0.0),
+    mz: int = 1,
+    dtype=np.float32,
+    dmin: float = 0,
+    dmax: float = -1,
+    dmean: float = -2,
+    rms: float = -1,
+    exthd_size: int = 0,
+    ispg: int = 0,
+) -> np.void:
+    """The header record of a (nz, ny, nx) map of ``dtype``."""
+    header = np.zeros((), dtype=HEADER_DTYPE)
+    header["nx"], header["ny"], header["nz"] = shape[2], shape[1], shape[0]
+    header["mode"] = dtype_to_mode(dtype)
+    header["mx"], header["my"], header["mz"] = 1, 1, mz
+    header["xlen"], header["ylen"], header["zlen"] = cella
+    header["alpha"], header["beta"], header["gamma"] = cellb
+    header["mapc"], header["mapr"], header["maps"] = 1, 2, 3
+    header["amin"], header["amax"], header["amean"] = dmin, dmax, dmean
+    header["ispg"] = ispg
+    header["next"] = exthd_size
+    header["rms"] = rms
+    return header[()]
+
+
 def write(f, array: np.ndarray, header=None, extended_header: bytes = b"",
           ax: float = 1, ay: float = 1, az: float = 1):
     """Write a float32 MRC file.  Parity: mrc.py:192-224."""
@@ -84,20 +120,11 @@ def write(f, array: np.ndarray, header=None, extended_header: bytes = b"",
     if array3.ndim == 2:
         array3 = array3[None]
     if header is None:
-        header = np.zeros((), dtype=HEADER_DTYPE)
-        header["nx"], header["ny"], header["nz"] = (
-            array3.shape[2], array3.shape[1], array3.shape[0],
+        header = make_header(
+            array3.shape, cella=(ax, ay, az), dmin=array3.min(),
+            dmax=array3.max(), dmean=array3.mean(), rms=array3.std(),
+            exthd_size=len(extended_header),
         )
-        header["mode"] = 2
-        header["mx"], header["my"], header["mz"] = 1, 1, 1
-        header["xlen"], header["ylen"], header["zlen"] = ax, ay, az
-        header["mapc"], header["mapr"], header["maps"] = 1, 2, 3
-        header["amin"], header["amax"], header["amean"] = (
-            array3.min(), array3.max(), array3.mean(),
-        )
-        header["next"] = len(extended_header)
-        header["rms"] = array3.std()
-        header = header[()]
 
     close = False
     if isinstance(f, str):

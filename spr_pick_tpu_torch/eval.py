@@ -4,13 +4,19 @@ standalone evaluator, and the evaluator itself.
 The PyTorch port of `spr_pick_tpu/eval.py` (`DenoiserEvaluator`) and of
 the parts of `spr_pick_tpu/train.py` that evaluation uses: the test data
 (`:376-441`), the dense eval pass with same-shape groups, batched NMS and
-contamination seeding (`_evaluate`, `:887-1116`, without the one-group
-export deferral), halo tiling for giant
+contamination seeding (`_evaluate`, `:887-1116`), halo tiling for giant
 micrographs with the weight-keyed halo calibration (`:1118-1231`), the
 artifact export on a thread pool (`:849-885`, `:1245-1360`) and the run-dir
 naming (`:1609-1655`).  The JAX evaluator inherits all of it from the
 trainer; here it is one base, `EvaluatorBase`, of both `DenoiserEvaluator`
 and the trainer (`train.py`).
+
+A group's host half (picks, PSNR, artifact submission) runs right after
+its forward.  The JAX package's ``SPR_EVAL_PIPELINE=1``, which runs it one
+group late (`train.py:1075-1100`), has no counterpart: on one CUDA stream
+the next forward queues ahead of the held group's copies to the host, and
+on an H100 the deferred loop took 11% longer at 1024^2
+(`scripts/eval_ab.py`, root PERF.md).
 
 Artifacts go to `<runs_dir>/NNNNN-eval-<config_name>/eval_imgs/` as
 ``{name}_{desc}.png`` and ``{name}_scores.txt`` (the reference's TSV schema:
@@ -120,11 +126,6 @@ class EvaluatorBase:
 
         cfg = self.cfg
         dtype = cfg[ConfigValue.TEST_DATASET_TYPE]
-        if dtype == DatasetType.HDF5:
-            raise NotImplementedError(
-                "HDF5 eval datasets are not ported yet (ROADMAP.md §1 item "
-                "10): pass a TXT manifest or a folder of images"
-            )
         if dtype == DatasetType.TXT or cfg[ConfigValue.TEST_LABEL_PATH]:
             from spr_pick_tpu_torch.data.micrograph import MicrographDataset
 
@@ -136,14 +137,12 @@ class EvaluatorBase:
                 bb=cfg[ConfigValue.BB],
             )
         else:
-            from spr_pick_tpu_torch.data.folder import \
-                UnlabelledImageFolderDataset
+            from spr_pick_tpu_torch.data.folder import (
+                UnlabelledImageFolderDataset, image_dataset)
             from spr_pick_tpu_torch.data.patches import UnlabeledEvalDataset
 
-            base = UnlabelledImageFolderDataset(
-                cfg[ConfigValue.TEST_DATA_PATH], recursive=True,
-                channels=cfg[ConfigValue.IMAGE_CHANNELS],
-            )
+            base = image_dataset(dtype, cfg[ConfigValue.TEST_DATA_PATH],
+                                 cfg[ConfigValue.IMAGE_CHANNELS])
             gt = None
             if cfg[ConfigValue.TEST_GT_PATH]:
                 gt = UnlabelledImageFolderDataset(

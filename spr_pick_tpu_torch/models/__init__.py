@@ -9,8 +9,11 @@ from spr_pick_tpu_torch.models.unet import BlindspotUNet
 from spr_pick_tpu_torch.models.resnet import (
     BasicConv2d,
     LinearClassifier,
+    MaxPoolLayer,
     ResidA,
+    ResNet6,
     ResNet8,
+    ResNet16,
 )
 from spr_pick_tpu_torch.models.joint import Detector, JointNetwork
 
@@ -23,8 +26,11 @@ __all__ = [
     "BlindspotUNet",
     "BasicConv2d",
     "LinearClassifier",
+    "MaxPoolLayer",
     "ResidA",
+    "ResNet6",
     "ResNet8",
+    "ResNet16",
     "Detector",
     "JointNetwork",
 ]

@@ -3,8 +3,7 @@
 PyTorch port of `spr_pick_tpu/models/joint.py` (parity:
 `spr_pick/models/joint_network_v2.py:437-561`).  ``dense`` is a forward
 argument: the same parameters give the per-crop logit (strided) or the
-per-pixel map (dilated, the reference's ``fill()``).  Only the dilated
-dense implementation is ported; the shift-and-stitch one is a later slice.
+per-pixel map (dilated, the reference's ``fill()``, or shift-and-stitch).
 Public tensors are NHWC, as in the JAX package.
 """
 
@@ -13,6 +12,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from spr_pick_tpu_torch.models import resnet
@@ -31,20 +31,56 @@ class Detector(nn.Module):
     Parity: joint_network_v2.py:543-561.  Returns float32 logits, NHWC.
     ``in_channels`` is the channel count of its input ``z`` (flax infers
     it): 1 for micrographs, 3 for a 3-channel denoiser's sample.
+
+    Dense (per-pixel) mode has two implementations of the same map on the
+    same parameters (`spr_pick_tpu/models/joint.py:43-90`):
+
+    * ``dense_impl="dilated"`` (the default): the reference's ``fill()``,
+      stride-1 convs dilated by the accumulated stride;
+    * ``dense_impl="stitch"``: shift-and-stitch, the strided network on the
+      stride^2 = 16 shifted crops of the padded input folded onto the batch,
+      its outputs interleaved (depth-to-space).  It needs H and W to be
+      multiples of 4; other shapes take the dilated path.
     """
 
+    STRIDE = 4  # ResNet8's total stride
+
     def __init__(self, dtype: Optional[torch.dtype] = None,
-                 in_channels: int = 1):
+                 in_channels: int = 1, dense_impl: str = "dilated"):
         super().__init__()
+        if dense_impl not in ("dilated", "stitch"):
+            raise ValueError(f"unknown dense_impl {dense_impl!r}")
         self.dtype = dtype
+        self.dense_impl = dense_impl
         self.input_bn = nn.BatchNorm2d(in_channels, eps=BN_EPS)
         self.features = ResNet8(bn=True, dtype=dtype, in_channels=in_channels)
         self.classifier = LinearClassifier(self.features.latent_dim)
 
     def forward(self, x: torch.Tensor, dense: bool = False) -> torch.Tensor:
         x = batch_norm(x.permute(0, 3, 1, 2), self.input_bn, self.dtype)
+        s = self.STRIDE
+        if (dense and self.dense_impl == "stitch"
+                and x.shape[2] % s == 0 and x.shape[3] % s == 0):
+            return self._stitch(x)
         out = self.classifier(self.features(x, dense))
         return out.float().permute(0, 2, 3, 1)
+
+    def _stitch(self, x: torch.Tensor) -> torch.Tensor:
+        """Shift-and-stitch dense map of the NCHW input -> (B, H, W, 1)."""
+        b, _, h, w = x.shape
+        s = self.STRIDE
+        width = self.features.width  # 63
+        pad = width // 2
+        # The strided input edge that gives exactly h / 4 sites a shift:
+        # 4 * (h / 4 - 1) + width = h + 59.
+        l_h, l_w = h + width - s, w + width - s
+        xp = F.pad(x, (pad, pad, pad, pad))
+        stacked = torch.cat([xp[:, :, dy : dy + l_h, dx : dx + l_w]
+                             for dy in range(s) for dx in range(s)])
+        sub = self.classifier(self.features(stacked))  # (16B, 1, h/4, w/4)
+        sub = sub.reshape(s, s, b, h // s, w // s)
+        # out[b, 4i + dy, 4j + dx] = sub[dy, dx, b, i, j]
+        return sub.permute(2, 3, 0, 4, 1).reshape(b, h, w, 1).float()
 
 
 class JointNetwork(nn.Module):

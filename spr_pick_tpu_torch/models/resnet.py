@@ -1,8 +1,7 @@
-"""Topaz-style ResNet8 feature extractor and its 1x1 classifier head.
+"""Topaz-style ResNet6/8/16 feature extractors and the 1x1 classifier head.
 
 PyTorch port of `spr_pick_tpu/models/resnet.py` (parity:
 `spr_pick/models/feature_extractor.py`, `spr_pick/models/classifier.py`).
-ResNet6 and ResNet16 belong to a later slice.
 
 Every layer knows its accumulated input stride (``dense_factor``) at
 construction; ``forward(x, dense=True)`` runs the same parameters as the
@@ -24,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from spr_pick_tpu_torch.models.blindspot import conv2d, torch_conv_init_
+from spr_pick_tpu_torch.utils.schedule import insize_from_outsize
 
 BN_EPS = 1e-5  # torch BatchNorm2d default, flax epsilon=1e-5
 BN_DECAY = 0.9  # flax momentum (torch momentum 0.1)
@@ -92,6 +92,25 @@ class BasicConv2d(nn.Module):
         return F.relu(y)
 
 
+class MaxPoolLayer(nn.Module):
+    """Dilatable max pool, VALID.  Parity: feature_extractor.py:241-277.
+
+    It holds no parameters, so it has no place in the flax tree either.
+    """
+
+    def __init__(self, kernel_size: int, stride: int = 1,
+                 dense_factor: int = 1):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.stride = stride
+        self.dense_factor = dense_factor
+
+    def forward(self, x: torch.Tensor, dense: bool = False) -> torch.Tensor:
+        d = self.dense_factor if dense else 1
+        s = 1 if dense else self.stride
+        return F.max_pool2d(x, self.kernel_size, stride=s, dilation=d)
+
+
 class ResidA(nn.Module):
     """Residual block: conv3 -> conv3(dilated[, strided]) + cropped skip.
 
@@ -147,10 +166,16 @@ class ResNet8(nn.Module):
     micrograph, 3 for the sample of a 3-channel denoiser.
     """
 
-    # Receptive field of the (kernel, stride) stack (7,2) (7,1) (7,2) (7,1)
-    # (3,1), ResidA counted as one 7-wide layer (2*dilation + 3); the JAX
-    # package derives it with utils/schedule.py:insize_from_outsize.
-    width = 63
+    # (kernel_size, stride) of each composite layer; a ResidA counts as one
+    # layer of kernel 2 * dilation + 3 (feature_extractor.py:348).
+    _META = (
+        dict(kernel_size=7, stride=2),
+        dict(kernel_size=7, stride=1),
+        dict(kernel_size=7, stride=2),
+        dict(kernel_size=7, stride=1),
+        dict(kernel_size=3, stride=1),
+    )
+    width = insize_from_outsize(list(_META), 1)  # 63
 
     def __init__(self, units: Sequence[int] = (32, 64, 128), bn: bool = True,
                  dtype: Optional[torch.dtype] = None, in_channels: int = 1):
@@ -175,6 +200,87 @@ class ResNet8(nn.Module):
         for layer in (self.layer0, self.layer1, self.layer2, self.layer3,
                       self.layer4):
             x = layer(x, dense)
+        return x
+
+
+class ResNet6(nn.Module):
+    """Topaz ResNet6: RF width 35, total stride 2, float32 (the flax module
+    takes no dtype).  Parity: feature_extractor.py:65-99."""
+
+    _META = (
+        dict(kernel_size=5, stride=1),
+        dict(kernel_size=3, stride=1),
+        dict(kernel_size=11, stride=1),
+        dict(kernel_size=3, stride=2),
+        dict(kernel_size=7, stride=1),
+        dict(kernel_size=3, stride=1),
+    )
+    width = insize_from_outsize(list(_META), 1)  # 35
+
+    def __init__(self, units: Sequence[int] = (32, 64, 128), bn: bool = True,
+                 in_channels: int = 1):
+        super().__init__()
+        u = units
+        self.latent_dim = u[2]
+        self.layer0 = BasicConv2d(in_channels, u[0], 5, bn=bn, dense_factor=1)
+        self.pool0 = MaxPoolLayer(3, stride=1, dense_factor=1)
+        self.layer1 = ResidA(u[0], u[0], u[1], dilation=4, bn=bn,
+                             dense_factor=1)
+        self.pool1 = MaxPoolLayer(3, stride=2, dense_factor=1)
+        self.layer2 = ResidA(u[1], u[1], u[1], dilation=2, bn=bn,
+                             dense_factor=2)
+        self.layer3 = BasicConv2d(u[1], u[2], 3, bn=bn, dense_factor=2)
+
+    def forward(self, x: torch.Tensor, dense: bool = False) -> torch.Tensor:
+        if dense:
+            p = self.width // 2
+            x = F.pad(x, (p, p, p, p))
+        for layer in (self.layer0, self.pool0, self.layer1, self.pool1,
+                      self.layer2, self.layer3):
+            x = layer(x, dense)
+        return x
+
+
+class ResNet16(nn.Module):
+    """Topaz ResNet16: RF width 91, total stride 4, float32 (the flax module
+    takes no dtype).  Parity: feature_extractor.py:191-238."""
+
+    _META = (
+        dict(kernel_size=7, stride=1),
+        dict(kernel_size=5, stride=2),
+        dict(kernel_size=5, stride=1),
+        dict(kernel_size=5, stride=1),
+        dict(kernel_size=5, stride=1),
+        dict(kernel_size=5, stride=2),
+        dict(kernel_size=5, stride=1),
+        dict(kernel_size=5, stride=1),
+        dict(kernel_size=5, stride=1),
+    )
+    width = insize_from_outsize(list(_META), 1)  # 91
+
+    def __init__(self, units: Sequence[int] = (32, 64, 128), bn: bool = True,
+                 in_channels: int = 1):
+        super().__init__()
+        u = units
+        self.latent_dim = u[2]
+        self.layer0 = BasicConv2d(in_channels, u[0], 7, bn=bn, dense_factor=1)
+        self.layer1 = ResidA(u[0], u[0], u[0], stride=2, bn=bn,
+                             dense_factor=1)
+        self.layer2 = ResidA(u[0], u[0], u[0], bn=bn, dense_factor=2)
+        self.layer3 = ResidA(u[0], u[0], u[0], bn=bn, dense_factor=2)
+        self.layer4 = ResidA(u[0], u[0], u[0], bn=bn, dense_factor=2)
+        self.layer5 = ResidA(u[0], u[0], u[1], stride=2, bn=bn,
+                             dense_factor=2)
+        self.layer6 = ResidA(u[1], u[1], u[1], bn=bn, dense_factor=4)
+        self.layer7 = ResidA(u[1], u[1], u[1], bn=bn, dense_factor=4)
+        self.layer8 = BasicConv2d(u[1], u[2], 5, bn=bn, dense_factor=4)
+
+    def forward(self, x: torch.Tensor, dense: bool = False) -> torch.Tensor:
+        if dense:
+            p = self.width // 2
+            x = F.pad(x, (p, p, p, p))
+        for i in range(9):
+            x = getattr(self, f"layer{i}")(x, dense)
         return x
 
 

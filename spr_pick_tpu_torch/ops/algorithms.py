@@ -1,14 +1,61 @@
-"""Contamination detection for NMS seeding, in numpy.
+"""Pick-quality metrics and contamination detection, in numpy.
 
-The PyTorch port's copy of `spr_pick_tpu/ops/algorithms.py:56-95` (parity:
-`spr_pick/utils/algorithms.py:24-58`): `find_contamination` marks pixels
-whose blurred intensity leaves the -1.5 / +2 sigma band, dilated by a disk,
-as a dense 0/1 mask that NMS takes as its initially suppressed set.
+The PyTorch port's copy of `spr_pick_tpu/ops/algorithms.py` (parity:
+`spr_pick/utils/algorithms.py:7-58`): `match_coordinates` is the Hungarian
+assignment of predicted to true particle coordinates within a radius (scipy,
+imported when called), `precision_recall_f1` summarises it, and
+`find_contamination` marks pixels whose blurred intensity leaves the -1.5 /
++2 sigma band, dilated by a disk, as a dense 0/1 mask that NMS takes as its
+initially suppressed set.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
+
+
+def match_coordinates(targets: np.ndarray, preds: np.ndarray, radius: float
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """Hungarian assignment of predictions to targets within `radius`.
+
+    Returns (assignment 0/1 per pred, distance per matched pred): scipy's
+    linear_sum_assignment on the squared distance less radius^2, clipped at
+    0, so a pair farther than `radius` costs nothing and counts as no match.
+    """
+    from scipy.optimize import linear_sum_assignment
+
+    if len(preds) == 0 or len(targets) == 0:
+        return np.zeros(len(preds), np.float32), np.zeros(len(preds))
+
+    d2 = np.sum((preds[:, np.newaxis] - targets[np.newaxis]) ** 2, 2)
+    cost = d2 - radius * radius
+    cost[cost > 0] = 0
+
+    pred_index, target_index = linear_sum_assignment(cost)
+    matched_cost = cost[pred_index, target_index]
+    dist = np.zeros(len(preds))
+    dist[pred_index] = np.sqrt(d2[pred_index, target_index])
+
+    pred_index = pred_index[matched_cost < 0]
+    assignment = np.zeros(len(preds), dtype=np.float32)
+    assignment[pred_index] = 1
+    return assignment, dist
+
+
+def precision_recall_f1(targets: np.ndarray, preds: np.ndarray, radius: float
+                        ) -> Tuple[float, float, float]:
+    """(precision, recall, F1) of `preds` against `targets` through
+    `match_coordinates`; no predictions score (0, 0, 0)."""
+    if len(preds) == 0:
+        return 0.0, 0.0, 0.0
+    assignment, _ = match_coordinates(targets, preds, radius)
+    tp = float(assignment.sum())
+    precision = tp / len(preds)
+    recall = tp / max(len(targets), 1)
+    f1 = 2 * precision * recall / max(precision + recall, 1e-12)
+    return precision, recall, f1
 
 
 def _box_blur(img: np.ndarray, k: int = 5) -> np.ndarray:

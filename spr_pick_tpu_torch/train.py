@@ -60,7 +60,7 @@ import torch
 
 from spr_pick_tpu_torch import cfg as cfg_mod
 from spr_pick_tpu_torch import weights
-from spr_pick_tpu_torch.data.folder import UnlabelledImageFolderDataset
+from spr_pick_tpu_torch.data.folder import image_dataset
 from spr_pick_tpu_torch.data.micrograph import (DevicePatchPipeline,
                                                 HostPatchPipeline,
                                                 MicrographDataset)
@@ -251,21 +251,17 @@ class DenoiserTrainer(EvaluatorBase):
         return dataset, sampler, pipeline
 
     def _denoise_train_data(self, dtype):
-        """The folder route of denoise-only training (train.py:329-374):
-        the device plane within the budget, else, or under
-        ``SPR_HOST_DENOISE_DATA=1``, the host plane."""
+        """The folder and HDF5 routes of denoise-only training
+        (train.py:329-374): the device plane within the budget, else, or
+        under ``SPR_HOST_DENOISE_DATA=1``, the host plane."""
         if self.mode != "denoise":
             raise NotImplementedError(
                 "joint training needs particle coordinates (TXT manifest); "
-                "folder datasets support denoise-only training (--dn_only)")
-        if dtype == DatasetType.HDF5:
-            raise NotImplementedError(
-                "HDF5 training datasets are not ported yet (ROADMAP.md §1 "
-                "item 10): pass a folder of images")
+                "folder/hdf5 datasets support denoise-only training "
+                "(--dn_only)")
         cfg = self.cfg
-        base = UnlabelledImageFolderDataset(
-            cfg[ConfigValue.TRAIN_DATA_PATH], recursive=True,
-            channels=cfg[ConfigValue.IMAGE_CHANNELS])
+        base = image_dataset(dtype, cfg[ConfigValue.TRAIN_DATA_PATH],
+                             cfg[ConfigValue.IMAGE_CHANNELS])
         kwargs = dict(
             patch=cfg[ConfigValue.TRAIN_PATCH_SIZE],
             algorithm=cfg[ConfigValue.ALGORITHM],

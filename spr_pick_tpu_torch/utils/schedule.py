@@ -1,6 +1,6 @@
 """Learning-rate schedule.
 
-The PyTorch port's copy of `spr_pick_tpu/utils/schedule.py:11-37`
+The PyTorch port's copy of `spr_pick_tpu/utils/schedule.py`
 (parity: `spr_pick/utils/utils.py:50-69`).
 """
 
@@ -36,3 +36,30 @@ def compute_ramped_lrate(
             learning_rate = learning_rate * (0.5 + np.cos(t * np.pi) / 2) ** 2
 
     return learning_rate
+
+
+def insize_from_outsize(layers, outsize: int) -> int:
+    """Input size of a conv stack producing `outsize` outputs.
+
+    `layers` is a sequence of objects (or dicts) carrying kernel_size /
+    stride / padding / dilation.  The port's copy of
+    `spr_pick_tpu/utils/schedule.py:40-61` (parity:
+    `spr_pick/utils/utils.py:18-47`).
+    """
+
+    def _get(layer, name, default):
+        if isinstance(layer, dict):
+            v = layer.get(name, default)
+        else:
+            v = getattr(layer, name, default)
+        if isinstance(v, tuple):
+            v = v[0]
+        return v
+
+    for layer in layers[::-1]:
+        kernel_size = _get(layer, "kernel_size", 1)
+        stride = _get(layer, "stride", 1)
+        pad = _get(layer, "padding", 0)
+        dilation = _get(layer, "dilation", 1)
+        outsize = (outsize - 1) * stride + 1 + (kernel_size - 1) * dilation - 2 * pad
+    return outsize

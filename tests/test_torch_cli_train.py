@@ -3,7 +3,7 @@ reading what they write.
 
 The port's command trains on the CPU only when asked (``--device cpu``);
 without the flag and without a GPU both subcommands raise,
-``--dn_only`` on an HDF5 dataset is refused naming its ROADMAP item, and
+``--dn_only`` on an HDF5 dataset starts a run, and
 ``--mesh 2`` with one card exits naming both counts.  A
 run started by the command (bf16 compute, the default, batch 4, 8
 iterations, a snapshot at 4) is resumed by the command from its snapshot
@@ -100,15 +100,31 @@ def test_without_a_gpu_both_commands_raise(dataset, run, tmp_path,
     assert not (tmp_path / RUN).exists()
 
 
+def test_dn_only_on_hdf5_starts_a_run(dataset, tmp_path):
+    """``--dn_only -t train.h5``: ssdn trains on the HDF5 file's images
+    (`tests/test_torch_hdf5.py` holds the route against the JAX package)."""
+    import h5py
+
+    h5 = str(tmp_path / "train.h5")
+    with h5py.File(h5, "w") as f:
+        f.create_dataset("images", data=np.random.RandomState(2).rand(
+            2, 96, 96).astype(np.float32))
+    runs = tmp_path / "runs"
+    cli.start(start_args(dataset, runs, "--device", "cpu", "--dn_only",
+                         "-t", h5))
+    run = runs / "00000-train-ssdn-gauss-iter8-0.8-0.01-denoise"
+    assert (run / "final-ssdn-gauss-iter8-0.8-0.01-denoise.wt").is_file()
+    assert sorted(os.listdir(run / "training_dn")) == [
+        f"model_{i:08d}.training" for i in (0, 4, 8)]
+
+
 @pytest.mark.parametrize("extra,match", [
-    (["--device", "cpu", "--dn_only", "-t", "train.h5"],
-     "ROADMAP.md §1 item 10"),
     (["--mesh", "2"], "--mesh 2: 2 GPUs are needed, 1 visible"),
 ])
 def test_refusals(dataset, tmp_path, monkeypatch, extra, match):
-    """HDF5 is not ported; ``--mesh 2`` on a host with one card exits
-    naming both counts (``--mesh 2 --device cpu`` trains on two gloo
-    ranks: `tests/test_torch_ddp.py`)."""
+    """``--mesh 2`` on a host with one card exits naming both counts
+    (``--mesh 2 --device cpu`` trains on two gloo ranks:
+    `tests/test_torch_ddp.py`)."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(SystemExit, match=match):
         cli.start(start_args(dataset, tmp_path, *extra))

@@ -10,6 +10,8 @@ labels and a ground-truth manifest, and ``--export_star``:
   * "contam": ``--exclude_contam --batch_size 2``, NMS seeded with
     `find_contamination` masks (one micrograph holds a dark blob);
   * "folder": a directory of the MRCs, no labels, one micrograph a forward.
+  * "pipelined": ``--batch_size 1`` with the JAX evaluator's one-group
+    export deferral (``SPR_EVAL_PIPELINE=1``) against the port's one loop.
 
 Compared: the run dir's name, the file names in `eval_imgs/`, the
 `_scores.txt` tables (same rows; scores within 1e-5), the `.star` files
@@ -19,7 +21,8 @@ host (input, target heatmap), and within one 8-bit level for the model's
 maps, whose float32 values differ between the packages by ~1e-6 and can
 cross a truncation boundary.  Beside the runs: the device u8 quantise
 against the host bytes, the PNG writer, the coordinate readers (.star,
-.box, VIA .csv, .txt) against JAX's, and the refusal of HDF5 datasets.
+.box, VIA .csv, .txt) against JAX's, and the items of an HDF5 test set
+against JAX's.
 """
 
 import csv
@@ -44,6 +47,10 @@ RUNS = {
     "batched": ["--batch_size", "2"],
     "contam": ["--exclude_contam", "--batch_size", "2"],
     "folder": [],
+    # The JAX evaluator with its export deferral (SPR_EVAL_PIPELINE=1), one
+    # micrograph a group so the first group's export runs after the second
+    # forward; the port has the one, undeferred loop.
+    "pipelined": ["--batch_size", "1"],
 }
 HOST_MAPS = ("nsy", "out-target")
 
@@ -99,8 +106,10 @@ def runs(tmp_path_factory):
             data = ["-d", str(d / "imgs.txt"), "-l", str(d / "coords.txt"),
                     "-gt", str(d / "gt.txt")]
         argv = ["eval", "-m", wt, *data, "--num", "2", "--export_star", *extra]
-        jev = _run(jax_cli.start, JEvaluator,
-                   argv + ["--runs_dir", str(d / name / "jax")])
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("SPR_EVAL_PIPELINE", "1" if name == "pipelined" else "0")
+            jev = _run(jax_cli.start, JEvaluator,
+                       argv + ["--runs_dir", str(d / name / "jax")])
         pev = _run(port_cli.start, DenoiserEvaluator,
                    argv + ["--runs_dir", str(d / name / "port"),
                            "--device", "cpu"])
@@ -186,7 +195,7 @@ def test_eval_contamination_seeding_moves_picks(runs):
                 != _rows(os.path.join(runs["batched"][side], f)))
 
 
-@pytest.mark.parametrize("run", ["batched", "contam"])
+@pytest.mark.parametrize("run", ["batched", "contam", "pipelined"])
 def test_eval_psnr_matches_jax(runs, run):
     r = runs[run]
     assert sorted(r["port_psnr"]) == sorted(r["jax_psnr"]) == [
@@ -220,14 +229,30 @@ def test_write_png_decodes_to_its_pixels(tmp_path):
         np.testing.assert_array_equal(np.asarray(im), u8)
 
 
-def test_hdf5_eval_dataset_is_refused(tmp_path):
+def test_hdf5_eval_dataset_yields_the_jax_images(tmp_path):
+    """`test_data()` on an `.h5`: the JAX package's items, name by name."""
+    import h5py
+
+    from spr_pick_tpu.eval import DenoiserEvaluator as JEvaluator
     from tests.test_torch_api_tiled import make_port_wt
 
-    ev = DenoiserEvaluator(make_port_wt(str(tmp_path / "w.wt")),
-                           runs_dir=str(tmp_path / "runs"), device="cpu")
-    ev.set_test_data(str(tmp_path / "mics.h5"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 10"):
-        ev.test_data()
+    h5 = str(tmp_path / "mics.h5")
+    with h5py.File(h5, "w") as f:
+        f.create_dataset("images", data=np.random.RandomState(3).randint(
+            0, 256, (2, 40, 52)).astype(np.uint8))
+    wt = make_port_wt(str(tmp_path / "w.wt"))
+    ev = DenoiserEvaluator(wt, runs_dir=str(tmp_path / "runs"), device="cpu")
+    ev.set_test_data(h5)
+    jev = JEvaluator(wt, runs_dir=str(tmp_path / "jruns"))
+    jev.set_test_data(h5)
+    (data, _), (jdata, _) = ev.test_data(), jev.test_data()
+    assert len(data) == len(jdata) == 2
+    for i in range(2):
+        got = data.test_item(i, pad_multiple=32, square=False)
+        want = jdata.test_item(i, pad_multiple=32, square=False)
+        assert got["name"] == want["name"]
+        assert got["image_shape"] == want["image_shape"] == (40, 52)
+        np.testing.assert_array_equal(got["inp"], np.asarray(want["inp"]))
 
 
 COORDINATE_FILES = {

@@ -35,6 +35,8 @@ mods = sorted(k for k in sys.modules if k.startswith("spr_pick_tpu_torch"))
 print("IMPORTED", len(mods))
 print("MODULES", " ".join(mods))
 print("BAD", bad)
+print("LAZY", sorted(k for k in sys.modules
+                     if k.split(".")[0] in ("scipy", "h5py")))
 """
 
 
@@ -44,6 +46,8 @@ def test_port_imports_no_jax_in_a_fresh_process():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+    # scipy and h5py are imported by the functions that use them.
+    assert "LAZY []" in out.stdout, out.stdout
     n = int(re.search(r"IMPORTED (\d+)", out.stdout).group(1))
     assert n >= 20  # every submodule was imported
     mods = set(re.search(r"MODULES (.*)", out.stdout).group(1).split())
@@ -61,7 +65,14 @@ def test_port_imports_no_jax_in_a_fresh_process():
             "spr_pick_tpu_torch.data.patches", "spr_pick_tpu_torch.compat",
             "spr_pick_tpu_torch.utils.ref_pickle",
             "spr_pick_tpu_torch.parallel.mesh",
-            "spr_pick_tpu_torch.parallel.dcn"} <= mods
+            "spr_pick_tpu_torch.parallel.dcn",
+            "spr_pick_tpu_torch.data.hdf5",
+            "spr_pick_tpu_torch.data.conversions",
+            "spr_pick_tpu_torch.ops.algorithms",
+            "spr_pick_tpu_torch.tools.convert_to_star",
+            "spr_pick_tpu_torch.tools.generate_train_files",
+            "spr_pick_tpu_torch.tools.dataset_tool_h5",
+            "spr_pick_tpu_torch.tools.import_reference_checkpoint"} <= mods
 
 
 _FORBIDDEN = re.compile(
