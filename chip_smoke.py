@@ -113,8 +113,15 @@ script then exits nonzero and prints no result):
      (K1 == plain on every `_scores.txt`); at D >= 2 the D-rank step (one
      process a card) equals the one-card step, the ranks hold identical
      parameters, and the tiled 4096x5760 pick over D cards gives the
-     one-card picks; samples/s at D and at 1.  Phases 10 and 11 run their
-     commands with ``--mesh 1``;
+     one-card picks; the trainers' stacks are sharded over the D ranks
+     (each rank's rows and bytes); samples/s through the sharded plane at
+     D and through the whole stack at 1; two virtual ranks on one card
+     (``Mesh(size=2, rank=r)``, no group) shard 13 full frames and their
+     owned crops sum exactly to the replicated gather at batch 16, 64^2,
+     centred with flips and at corners (each shard's bytes, both gathers'
+     times); at D >= 2 a per-card budget between a rank's share and the
+     whole stack keeps the device plane on the ranks and not on one card.
+     Phases 10 and 11 run their commands with ``--mesh 1``;
  13. ResNet6/16, the stitch detector, writers and metrics, tools: the
      phase-3 weights in a `Detector(dense_impl="stitch")` against the
      dilated detector, float32 (TF32 off) at 1024^2 and at 250x300 (padded
@@ -1840,6 +1847,9 @@ def denoise_phase(tmp: str, Picker, nms_cuda, gpu: str) -> int:
 # ---------------------------------------------------------------------------
 
 DDP_STEPS = 5        # bf16 train steps a timed window, as in phase 10
+# 12b's virtual two-rank check: more than 12 full frames (1.23 GB float32),
+# an odd count so that rank 1's shard ends in a zero row.
+SHARD_FRAMES = 13
 # D ranks against one, float32 with TF32 off.  At D = 1 (an NCCL group of
 # one) the step is the one-rank step, so it is held to the CPU test's
 # tolerances (tests/test_torch_ddp.py); at D >= 2 each card runs batch
@@ -2028,9 +2038,39 @@ def ddp_rate(t) -> float:
     return 1e3 * DDP_STEPS * TRAIN_BATCH / med
 
 
+def plane_under_budget(paths10, tmp: str, budget: int, mesh=None) -> str:
+    """The class of the joint data plane that a trainer on phase 10's set
+    takes under ``budget`` bytes a card (``SPR_DEVICE_DATA_BUDGET``)."""
+    from spr_pick_tpu_torch.train import DenoiserTrainer
+
+    t = DenoiserTrainer(train_cfg("bf16"), alpha=0.8, tau=0.01, mesh=mesh,
+                        runs_dir=os.path.join(tmp, "budget"))
+    t.set_train_data(paths10["train_images"])
+    t.set_train_label(paths10["train_coords"])
+    saved = os.environ.get("SPR_DEVICE_DATA_BUDGET")
+    os.environ["SPR_DEVICE_DATA_BUDGET"] = str(budget)
+    try:
+        return type(t.train_data()[2]).__name__
+    finally:
+        if saved is None:
+            del os.environ["SPR_DEVICE_DATA_BUDGET"]
+        else:
+            os.environ["SPR_DEVICE_DATA_BUDGET"] = saved
+
+
+def budget_between(stack_shape, d: int) -> int:
+    """A per-card budget between one rank's share of the stack and the
+    whole stack."""
+    n, h, w = stack_shape
+    return (-(-n // d) * h * w * 4 + n * h * w * 4) // 2
+
+
 def ddp_rank(mesh, img, paths10, tmp: str) -> None:
     """One rank of phase 12b: its float32 step, K1 in its data-parallel
-    validation, its bf16 rate, into ``tmp/ddp_rank<r>.pkl``."""
+    validation, its shard of the trainer's stack, its bf16 rate through
+    the sharded plane, and at D >= 2 the plane it keeps under a budget
+    between its share and the whole stack; into
+    ``tmp/ddp_rank<r>.pkl``."""
     import pickle
 
     from spr_pick_tpu_torch.ops import nms_cuda
@@ -2038,9 +2078,94 @@ def ddp_rank(mesh, img, paths10, tmp: str) -> None:
     step = ddp_step(img, mesh)
     t, launches = k1_in_training(paths10, os.path.join(tmp, "ddp"),
                                  nms_cuda, 15, mesh=mesh)
+    stack = t.patch_pipeline.stack
+    if stack.mesh is not mesh:
+        raise AssertionError(f"rank {mesh.rank}: the trainer's stack is not "
+                             f"sharded over its mesh")
+    local = stack.images_dev
+    shard = dict(offset=stack.offset, rows=local.shape[0],
+                 bytes=local.numel() * local.element_size(),
+                 shape=stack.shape)
     rate = ddp_rate(t)
+    plane = None
+    if mesh.size > 1:
+        plane = plane_under_budget(paths10, os.path.join(tmp, "ddp"),
+                                   budget_between(stack.shape, mesh.size),
+                                   mesh)
     with open(os.path.join(tmp, f"ddp_rank{mesh.rank}.pkl"), "wb") as f:
-        pickle.dump(dict(step=step, launches=launches, rate=rate), f)
+        pickle.dump(dict(step=step, launches=launches, rate=rate,
+                         shard=shard, plane=plane), f)
+
+
+def virtual_shards(gpu: str) -> None:
+    """12b on one card, with no group: a stack of SHARD_FRAMES full frames
+    split into the shards of ``Mesh(size=2, rank=r)``; their
+    `owned_crops` summed must equal the replicated gather exactly at
+    batch 16, 64^2, centred with flips (the joint plane) and at corners
+    (the denoise plane).  Logs each shard's bytes (memory_allocated) and
+    both gathers' times."""
+    from spr_pick_tpu_torch.parallel.mesh import (Mesh, owned_crops,
+                                                  shard_stack)
+
+    h, w = BIG_SHAPE
+    rng = np.random.default_rng(SEED + 50)
+    stack = rng.standard_normal((SHARD_FRAMES, h, w), dtype=np.float32)
+    shards, used = [], []
+    for r in range(2):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        shards.append(shard_stack(stack, Mesh(size=2, rank=r,
+                                              device=torch.device("cuda"))))
+        torch.cuda.synchronize()
+        used.append(torch.cuda.memory_allocated() - before)
+    before = torch.cuda.memory_allocated()
+    whole = torch.from_numpy(stack).cuda()
+    torch.cuda.synchronize()
+    used.append(torch.cuda.memory_allocated() - before)
+    del stack
+    lines = []
+    for centered, plane in ((True, "joint (centres, W flips)"),
+                            (False, "denoise (corners)")):
+        lo = TRAIN_PATCH // 2 if centered else 0
+        flat = rng.integers(0, SHARD_FRAMES, TRAIN_BATCH)
+        flat[:2] = 0, SHARD_FRAMES - 1  # a draw from each shard
+        ys = rng.integers(lo, h - TRAIN_PATCH + lo + 1, TRAIN_BATCH)
+        xs = rng.integers(lo, w - TRAIN_PATCH + lo + 1, TRAIN_BATCH)
+        flips = ((rng.random(TRAIN_BATCH) < 0.5).astype(np.int32)
+                 if centered else None)
+
+        def replicated():
+            return owned_crops(whole, 0, flat, ys, xs, flips, TRAIN_PATCH,
+                               centered)
+
+        def sharded():
+            (a, oa), (b, ob) = shards
+            return (owned_crops(a, oa, flat, ys, xs, flips, TRAIN_PATCH,
+                                centered)
+                    + owned_crops(b, ob, flat, ys, xs, flips, TRAIN_PATCH,
+                                  centered))
+
+        got, want = sharded(), replicated()
+        if got.shape != (TRAIN_BATCH, TRAIN_PATCH, TRAIN_PATCH) or \
+                not torch.equal(got, want):
+            raise AssertionError(f"virtual two-rank crops, {plane}: the "
+                                 f"shards' sum differs from the replicated "
+                                 f"gather")
+        lines.append(f"{plane}: sum of the 2 shards' crops == replicated "
+                     f"gather (exact); replicated gather "
+                     f"{summary(cuda_ms(replicated))[0]}, both shards' "
+                     f"owned crops + add {summary(cuda_ms(sharded))[0]}")
+    rows = [s[0].shape[0] for s in shards]
+    log(f"virtual 2-rank shards of {SHARD_FRAMES} frames {h}x{w} float32 "
+        f"({used[2] / 1e9:.3f} GB replicated): rank 0 rows [0, {rows[0]}) "
+        f"{used[0] / 1e9:.3f} GB, rank 1 rows [{shards[1][1]}, "
+        f"{shards[1][1] + rows[1]}) {used[1] / 1e9:.3f} GB (one zero row), "
+        f"by memory_allocated | {gpu}")
+    for line in lines:
+        log(f"virtual 2-rank gather, batch {TRAIN_BATCH} {TRAIN_PATCH}^2, "
+            f"{line} | {gpu}")
+    del shards, whole
+    torch.cuda.empty_cache()
 
 
 def ddp_phase(tmp: str, img: np.ndarray, paths, frame: str, Picker,
@@ -2085,11 +2210,34 @@ def ddp_phase(tmp: str, img: np.ndarray, paths, frame: str, Picker,
                                         r["step"]["after"]) for r in ranks):
         raise AssertionError("ranks hold different parameters")
     log(f"ddp: {d} rank(s) took {time.perf_counter() - t0:.1f} s; K1 "
-        f"launched {ranks[0]['launches']} times in rank 0's validation")
+        f"launched {ranks[0]['launches']} times in rank 0's validation "
+        f"(sharded stack)")
+    for r, res in enumerate(ranks):
+        sh = res["shard"]
+        n, h, w = sh["shape"]
+        if (sh["rows"], sh["offset"]) != (-(-n // d), r * -(-n // d)):
+            raise AssertionError(f"ddp rank {r}/{d}: shard of {sh['rows']} "
+                                 f"rows at {sh['offset']} for {n} images")
+        log(f"ddp rank {r}/{d}: the trainer's joint plane holds stack rows "
+            f"[{sh['offset']}, {sh['offset'] + sh['rows']}), "
+            f"{sh['bytes'] / 2**20:.1f} MiB of the {n}x{h}x{w} "
+            f"{n * h * w * 4 / 2**20:.1f} MiB stack")
     rate1 = ddp_rate(trainer)
     log(f"rate ddp train bf16 batch {TRAIN_BATCH} {TRAIN_PATCH}^2: "
-        f"{ranks[0]['rate']:.1f} samples/s at D={d} (NCCL), {rate1:.1f} "
-        f"samples/s at 1 (no group) | {gpu}")
+        f"{ranks[0]['rate']:.1f} samples/s at D={d} (NCCL, stack sharded), "
+        f"{rate1:.1f} samples/s at 1 (no group, whole stack) | {gpu}")
+    virtual_shards(gpu)
+    if d > 1:
+        budget = budget_between(ranks[0]["shard"]["shape"], d)
+        one = plane_under_budget(paths10, tmp, budget)
+        if any(r["plane"] != "DevicePatchPipeline" for r in ranks) or \
+                one != "HostPatchPipeline":
+            raise AssertionError(f"budget {budget} B a card: {d} ranks take "
+                                 f"{[r['plane'] for r in ranks]}, one card "
+                                 f"{one}")
+        log(f"budget {budget} B a card, between a rank's share and the "
+            f"stack: the {d} ranks keep the device plane, one card takes "
+            f"the host plane")
     if d > 1:
         devices = [f"cuda:{i}" for i in range(d)]
         want = Picker(paths["main"]).pick_arrays(frame)

@@ -8,11 +8,12 @@ coordinate matching, mask/heatmap construction, whole-image test items and
 training crops, without pandas; and the two data planes of joint training.
 
 `DevicePatchPipeline` keeps the micrograph stack on the device (placed on
-first use) and cuts each batch's crops there with one gather indexed by
-the sampler's decoded (image, y, x) and a flip bit a crop: the host ships
-four (B,) index arrays and the (B,) labels a step.  Labels are point-reads
-of the host heatmaps at the sampled centre, whatever the flip (as the
-reference's micrograph.py:77 reads them).  `HostPatchPipeline` cuts the
+first use, or sharded over the ranks of a mesh by `shard_over`) and cuts
+each batch's crops there with one gather indexed by the sampler's decoded
+(image, y, x) and a flip bit a crop: the host ships four (B,) index arrays
+and the (B,) labels a step.  Labels are point-reads of the host heatmaps
+at the sampled centre, whatever the flip (as the reference's
+micrograph.py:77 reads them).  `HostPatchPipeline` cuts the
 crops on the host (zero-padded at the borders) when the stack exceeds the
 device budget.  Both draw their flips from their own
 ``RandomState(0)``, whose state is resumable.
@@ -33,6 +34,7 @@ from spr_pick_tpu_torch.data import table as tbl
 from spr_pick_tpu_torch.data.loader import IMAGE_EXTS, load_images_from_list
 from spr_pick_tpu_torch.data.sampler import unpack_index
 from spr_pick_tpu_torch.ops.heatmap import as_gaussian, as_mask
+from spr_pick_tpu_torch.parallel.mesh import Mesh, owned_crops, shard_stack
 
 
 def _image_table(path: str, image_ext: str = "") -> tbl.Table:
@@ -282,20 +284,84 @@ def _crop_zero_pad(img: np.ndarray, x0: int, y0: int, size: int) -> np.ndarray:
     return out
 
 
+class PaddedStack:
+    """A list of 2-D float32 images as an (N, Hmax, Wmax) stack, each image
+    zero-padded at its trailing sides; a slice of rows is built on demand,
+    so a rank of a mesh builds only its own rows (`shard_stack`)."""
+
+    def __init__(self, images):
+        self.images = images
+        self.shape = (len(images), max(im.shape[0] for im in images),
+                      max(im.shape[1] for im in images))
+        self.nbytes = int(np.prod(self.shape)) * 4
+
+    def __getitem__(self, rows: slice) -> np.ndarray:
+        picked = self.images[rows]
+        out = np.zeros((len(picked),) + self.shape[1:], np.float32)
+        for n, im in enumerate(picked):
+            out[n, : im.shape[0], : im.shape[1]] = im
+        return out
+
+
+class StackOnDevice:
+    """The device half of a data plane's image stack: the padded host stack
+    until first use, then the whole stack on ``device`` (`images_dev`) or,
+    after `shard_over`, this rank's rows of it (JAX
+    `micrograph.py:405-431`, `patches.py:166-188`).  `crops` cuts a
+    batch's crops from it; under a mesh each rank cuts those of the images
+    it holds and the ranks sum them, so every rank gets every crop."""
+
+    def __init__(self, stack: PaddedStack, device):
+        self.device = torch.device(device)
+        self.shape = stack.shape
+        self._host: Optional[PaddedStack] = stack
+        self._dev: Optional[torch.Tensor] = None
+        self.offset = 0
+        self.mesh: Optional[Mesh] = None
+
+    @property
+    def images_dev(self) -> torch.Tensor:
+        """The stack (this rank's rows of it after `shard_over`) on the
+        device, placed on first use."""
+        if self._dev is None:
+            self._place(Mesh(size=1, rank=0, device=self.device))
+        return self._dev
+
+    def shard_over(self, mesh: Mesh) -> None:
+        """Place only this rank's rows, ``ceil(N / D)`` of the stack padded
+        with zero images to a multiple of D, straight from the host; then
+        crops are gathered from the ranks that hold them."""
+        if self._dev is not None:
+            raise RuntimeError("the stack is already on the device")
+        self.mesh = mesh
+        self._place(mesh)
+
+    def _place(self, mesh: Mesh) -> None:
+        self._dev, self.offset = shard_stack(self._host, mesh)
+        self._host = None
+
+    def crops(self, flat, ys, xs, flips, crop: int,
+              centered: bool) -> torch.Tensor:
+        """(B, crop, crop) crops of the global draws (`owned_crops`)."""
+        out = owned_crops(self.images_dev, self.offset, flat, ys, xs, flips,
+                          crop, centered)
+        return out if self.mesh is None else self.mesh.global_sum(out)
+
+
 class DevicePatchPipeline:
     """The training data plane with the micrograph stack on the device.
 
     Parity: `spr_pick_tpu/data/micrograph.py:332-513`.  All micrographs are
     stacked into one zero-padded (N, H, W) float32 array, copied to
-    ``device`` on first use (`images_dev`), and each batch is one gather
-    from it.  Raises ValueError when the padded stack would exceed
-    ``max_bytes`` (the trainer then takes `HostPatchPipeline`).
+    ``device`` on first use (`images_dev`), or sharded over the ranks of a
+    mesh (`shard_over`), and each batch is one gather from it.  Raises
+    ValueError when the padded stack would exceed ``max_bytes`` (the
+    trainer then takes `HostPatchPipeline`).
     """
 
     def __init__(self, dataset: MicrographDataset, crop: int,
                  max_bytes: int = 4 << 30, device: torch.device | str = "cpu"):
         self.crop = crop
-        self.device = torch.device(device)
 
         flat_images, flat_hms = [], []
         self.flat_of: Dict[Tuple[int, int], int] = {}
@@ -305,35 +371,32 @@ class DevicePatchPipeline:
                 flat_images.append(img)
                 flat_hms.append(dataset.hms[g][i])
 
-        hmax = max(im.shape[0] for im in flat_images)
-        wmax = max(im.shape[1] for im in flat_images)
-        nbytes = len(flat_images) * hmax * wmax * 4
-        if nbytes > max_bytes:
+        stack = PaddedStack(flat_images)
+        if stack.nbytes > max_bytes:
             raise ValueError(
-                f"micrograph stack ({nbytes / 2**30:.1f} GiB padded to "
-                f"{len(flat_images)}x{hmax}x{wmax}) exceeds the device "
+                f"micrograph stack ({stack.nbytes / 2**30:.1f} GiB padded to "
+                f"{'x'.join(map(str, stack.shape))}) exceeds the device "
                 f"data-plane budget ({max_bytes / 2**30:.1f} GiB)"
             )
-        stack = np.zeros((len(flat_images), hmax, wmax), np.float32)
-        for n, im in enumerate(flat_images):
-            stack[n, : im.shape[0], : im.shape[1]] = im
         self.widths = np.array([im.shape[1] for im in flat_images], np.int32)
         self.heights = np.array([im.shape[0] for im in flat_images], np.int32)
-        # Placed on first use; the host heatmaps stay on the host for the
-        # label point-reads.
-        self._images_host: Optional[np.ndarray] = stack
-        self._images_dev: Optional[torch.Tensor] = None
+        # The host heatmaps stay on the host for the label point-reads.
+        self.stack = StackOnDevice(stack, device)
         self._hms_host = flat_hms
         self._np_rng = np.random.RandomState(0)
 
     @property
+    def device(self) -> torch.device:
+        return self.stack.device
+
+    @property
     def images_dev(self) -> torch.Tensor:
-        """The (N, H, W) stack on the device, copied there on first use."""
-        if self._images_dev is None:
-            self._images_dev = torch.from_numpy(self._images_host).to(
-                self.device)
-            self._images_host = None
-        return self._images_dev
+        return self.stack.images_dev
+
+    def shard_over(self, mesh: Mesh) -> None:
+        """Shard the stack over the mesh's ranks (`StackOnDevice.shard_over`;
+        JAX `micrograph.py:422-431`)."""
+        self.stack.shard_over(mesh)
 
     def state_dict(self):
         """Flip-augment RNG state (resumable data plane)."""
@@ -390,18 +453,9 @@ class DevicePatchPipeline:
     def gather(self, flat, ys, xs, flips) -> torch.Tensor:
         """(B, crop, crop, 1) crops centred at (ys, xs) of images ``flat``,
         each mirrored along W where its flip bit is set: one gather from
-        the device stack."""
-        half = self.crop // 2
-        idx = torch.from_numpy(np.stack(
-            [flat, np.asarray(ys) - half, np.asarray(xs) - half, flips]
-        ).astype(np.int64)).to(self.device)
-        f, y0, x0, fl = idx
-        j = torch.arange(self.crop, device=self.device)
-        rows = y0[:, None] + j
-        cols = x0[:, None] + torch.where(fl[:, None] > 0, self.crop - 1 - j, j)
-        images = self.images_dev
-        return images[f[:, None, None], rows[:, :, None],
-                      cols[:, None, :]][..., None]
+        the device stack (and a sum over the ranks of a mesh)."""
+        return self.stack.crops(flat, ys, xs, flips, self.crop,
+                                centered=True)[..., None]
 
     def batch(self, packed_indices: np.ndarray) -> Dict[str, torch.Tensor]:
         flat, ys, xs = self.decode(packed_indices)

@@ -9,10 +9,11 @@ crops from whole images and the algorithm-dependent input/reference of
   * `DenoisePatchPipeline`, the host plane: numpy crops and noise from one
     `RandomState`, the JAX package's draws bit for bit.
   * `DeviceDenoisePipeline`, the device plane: the image stack lives on the
-    device; the host draws only the crop coordinates (numpy, as in the JAX
-    package), and the gather, noise and UPS masking run as torch ops on
-    the device, drawn from a `torch.Generator` seeded with
-    ``seed ^ 0x5EED``.  Those draws cannot equal `jax.random`'s.
+    device (sharded over the ranks of a mesh after `shard_over`); the host
+    draws only the crop coordinates (numpy, as in the JAX package), and
+    the gather, noise and UPS masking run as torch ops on the device,
+    drawn from a `torch.Generator` seeded with ``seed ^ 0x5EED``.  Those
+    draws cannot equal `jax.random`'s.
   * `UnlabeledEvalDataset`, the `test_item` contract over a folder.
 """
 
@@ -25,7 +26,8 @@ import numpy as np
 import torch
 
 from spr_pick_tpu_torch.data.crop import random_crop
-from spr_pick_tpu_torch.data.micrograph import pad_to_multiple
+from spr_pick_tpu_torch.data.micrograph import (PaddedStack, StackOnDevice,
+                                                pad_to_multiple)
 from spr_pick_tpu_torch.data.noisy import prepare_batch, prepare_batch_torch
 from spr_pick_tpu_torch.params import NoiseAlgorithm
 
@@ -80,10 +82,12 @@ class DeviceDenoisePipeline:
     """The denoise data plane with the image stack on the device.
 
     Every image is decoded once into one zero-padded (N, Hmax, Wmax)
-    float32 stack on ``device`` (undersized images take `random_crop`'s
-    reflect pad first).  A batch is image indices and in-bounds crop
-    corners from a numpy `RandomState` (`sample_coords`, the JAX package's
-    draws), one gather, and `prepare_batch_torch` from the generator.
+    float32 stack (undersized images take `random_crop`'s reflect pad
+    first), placed on ``device`` on first use (`images_dev`) or sharded
+    over the ranks of a mesh (`shard_over`).  A batch is image indices and
+    in-bounds crop corners from a numpy `RandomState` (`sample_coords`, the
+    JAX package's draws), one gather, and `prepare_batch_torch` from the
+    generator.
     ``key_counter`` counts batches, as the JAX package's per-batch key
     does.  Raises ValueError when the padded stack would exceed
     ``max_bytes``, checked while decoding (the trainer then takes
@@ -122,12 +126,9 @@ class DeviceDenoisePipeline:
                     f"image stack (>= {nbytes / 2**30:.1f} GiB padded) "
                     f"exceeds the device data-plane budget "
                     f"({max_bytes / 2**30:.1f} GiB)")
-        stack = np.zeros((n_imgs, hmax, wmax), np.float32)
-        for n, im in enumerate(imgs):
-            stack[n, : im.shape[0], : im.shape[1]] = im
         self.heights = np.array([im.shape[0] for im in imgs], np.int32)
         self.widths = np.array([im.shape[1] for im in imgs], np.int32)
-        self.images = torch.from_numpy(stack).to(self.device)
+        self.stack = StackOnDevice(PaddedStack(imgs), self.device)
 
         self.rng = np.random.RandomState(seed)
         self._gen_seed = seed ^ 0x5EED
@@ -145,17 +146,21 @@ class DeviceDenoisePipeline:
         xs = (rx * (self.widths[flat] - self.patch + 1)).astype(np.int32)
         return flat, ys, xs
 
+    @property
+    def images_dev(self) -> torch.Tensor:
+        return self.stack.images_dev
+
+    def shard_over(self, mesh) -> None:
+        """Shard the stack over the mesh's ranks (`StackOnDevice.shard_over`;
+        JAX `patches.py:180-188`)."""
+        self.stack.shard_over(mesh)
+
     def gather(self, flat, ys, xs) -> torch.Tensor:
         """(B, patch, patch) crops with corners (ys, xs) of images
-        ``flat``: one gather from the stack."""
-        idx = torch.from_numpy(
-            np.stack([flat, ys, xs]).astype(np.int64)).to(self.device)
-        f, y0, x0 = idx
-        j = torch.arange(self.patch, device=self.device)
-        rows = y0[:, None] + j
-        cols = x0[:, None] + j
-        return self.images[f[:, None, None], rows[:, :, None],
-                           cols[:, None, :]]
+        ``flat``: one gather from the stack (and a sum over the ranks of a
+        mesh)."""
+        return self.stack.crops(flat, ys, xs, None, self.patch,
+                                centered=False)
 
     def batch(self, batch_size: int) -> Dict[str, torch.Tensor]:
         flat, ys, xs = self.sample_coords((batch_size,))

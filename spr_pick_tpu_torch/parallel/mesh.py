@@ -22,6 +22,13 @@ global gradient, as its local-mean terms do, so the average is the global
 gradient.  A failing init, a missing card for a rank or a failing
 collective raises: a run never falls back to one device.
 
+The training micrograph stack is sharded, not replicated (JAX
+`parallel/mesh.py:shard_stack`, `steps.py:_sharded_patch_gather`): rank r
+holds rows ``[r n_l, (r+1) n_l)`` of the stack zero-padded to ``D n_l``
+rows, ``n_l = ceil(N / D)`` (`shard_stack`), and a batch is each rank's
+`owned_crops` (exact zeros for the images it does not hold) summed over
+the ranks, so every rank ends with the crops of a replicated stack.
+
 `resolve_size` resolves ``--mesh``/``MESH_SHAPE`` as the JAX trainer does
 (train.py:201-221); `launch` starts D worker processes for one command,
 and `join_torchrun` joins the group ``torchrun`` set up.
@@ -34,8 +41,9 @@ import logging
 import os
 import socket
 from datetime import timedelta
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -141,6 +149,62 @@ class _AllReduceSum(torch.autograd.Function):
         grad = grad.clone()
         dist.all_reduce(grad)
         return grad
+
+
+def shard_rows(n: int, size: int, rank: int) -> Tuple[int, int]:
+    """(first row, rows) of rank ``rank``'s shard of an N-row stack over
+    ``size`` ranks: rows ``[r n_l, (r+1) n_l)`` of the stack zero-padded to
+    ``D n_l``, as ``P(axis)`` places a JAX array padded by `shard_stack`."""
+    n_local = -(-n // size)
+    return rank * n_local, n_local
+
+
+def shard_stack(host_stack, mesh: Mesh) -> Tuple[torch.Tensor, int]:
+    """This rank's rows of an (N, ...) host stack on ``mesh.device``, and
+    their first row (JAX `parallel/mesh.py:56-86`).
+
+    Rows past N are zeros: N is padded up to a multiple of the mesh size
+    with all-zero images, which no sampler index points at.  Only this
+    rank's rows are read from ``host_stack`` (a numpy array, or any object
+    with ``shape`` whose slices are numpy arrays) and copied to the
+    device, so the whole stack never sits on one card."""
+    n = host_stack.shape[0]
+    offset, n_local = shard_rows(n, mesh.size, mesh.rank)
+    rows = torch.from_numpy(np.ascontiguousarray(
+        host_stack[offset:min(offset + n_local, n)]))
+    local = torch.empty((n_local,) + tuple(host_stack.shape[1:]),
+                        dtype=rows.dtype, device=mesh.device)
+    local[:len(rows)].copy_(rows)
+    local[len(rows):].zero_()
+    return local, offset
+
+
+def owned_crops(local: torch.Tensor, offset: int, flat, ys, xs, flips,
+                crop: int, centered: bool) -> torch.Tensor:
+    """(B, crop, crop) crops of the B global draws (numpy ``flat``, ``ys``,
+    ``xs``, ``flips``), cut from the shard ``local`` whose first row is
+    ``offset`` where it holds image ``flat[b]``, exact zeros elsewhere: one
+    rank's part of JAX `steps.py:161-211`.  Summed over the ranks
+    (`Mesh.global_sum`) they are the crops of the whole stack.
+
+    ``centered=True`` (the joint plane): (ys, xs) are crop centres and a
+    set flip bit mirrors the crop along W.  ``centered=False`` (the denoise
+    plane): corners, and ``flips`` is None.  The draws must lie in their
+    image; the row index is clamped into the shard before the mask, so a
+    row this rank does not hold reads a row it does."""
+    draws = [flat, ys, xs] + ([] if flips is None else [flips])
+    idx = torch.from_numpy(np.stack(draws).astype(np.int64)).to(local.device)
+    half = crop // 2 if centered else 0
+    rel = idx[0] - offset
+    own = (rel >= 0) & (rel < local.shape[0])
+    j = torch.arange(crop, device=local.device)
+    rows = (idx[1] - half)[:, None] + j
+    cols = (idx[2] - half)[:, None] + (
+        j if flips is None else torch.where(idx[3][:, None] > 0,
+                                            crop - 1 - j, j))
+    out = local[rel.clamp(0, local.shape[0] - 1)[:, None, None],
+                rows[:, :, None], cols[:, None, :]]
+    return out.masked_fill_(~own[:, None, None], 0)
 
 
 def _is_cpu(device) -> bool:

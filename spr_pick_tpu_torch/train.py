@@ -36,13 +36,15 @@ seeded with the cfg seed at each pass.  The device is the GPU unless the
 caller passes another (`utils/device.py`).
 
 Data parallel (``mesh``, `parallel/mesh.py`; the JAX trainer's mesh,
-train.py:201-221): each rank runs this loop on its own card, draws the
-same global batch and keeps its rows (`next_batch`), and steps in
-lockstep with the others (`steps.train_step` averages the gradients);
-the ranks start from rank 0's variables, stop together on a signal to
-any of them, validate on their shares of the micrographs, and rank 0
-alone writes snapshots, `.wt`, scalars and the log.  The data state is
-the global one, so a run resumes at any number of ranks.
+train.py:201-221): each rank runs this loop on its own card, holds its
+share of the device plane's image stack (`_shard`; the budget is a card's
+times the ranks), draws the same global batch, whose crops the ranks
+gather from the shards that hold them, keeps its rows (`next_batch`), and
+steps in lockstep with the others (`steps.train_step` averages the
+gradients); the ranks start from rank 0's variables, stop together on a
+signal to any of them, validate on their shares of the micrographs, and
+rank 0 alone writes snapshots, `.wt`, scalars and the log.  The data state
+is the global one, so a run resumes at any number of ranks.
 """
 
 from __future__ import annotations
@@ -69,6 +71,7 @@ from spr_pick_tpu_torch.data.patches import (DenoisePatchPipeline,
 from spr_pick_tpu_torch.data.sampler import StratifiedCoordinateSampler
 from spr_pick_tpu_torch.denoiser import Denoiser
 from spr_pick_tpu_torch.eval import EvaluatorBase
+from spr_pick_tpu_torch.parallel.mesh import shard_rows
 from spr_pick_tpu_torch.params import (ConfigValue, DatasetType, HistoryValue,
                                        PipelineOutput, StateValue)
 from spr_pick_tpu_torch.steps import TrainState, init_state, make_optimizer, \
@@ -85,10 +88,12 @@ logger = logging.getLogger("train")
 DEFAULT_RUN_DIR = cfg_mod.DEFAULT_RUN_DIR
 
 
-def _device_data_budget() -> int:
-    """Device byte budget of the micrograph stack (4 GiB by default;
-    SPR_DEVICE_DATA_BUDGET overrides, in bytes).  train.py:76-85."""
-    return int(os.environ.get("SPR_DEVICE_DATA_BUDGET", 4 << 30))
+def _device_data_budget(mesh=None) -> int:
+    """Device byte budget of the micrograph stack: 4 GiB a card by default
+    (SPR_DEVICE_DATA_BUDGET overrides, in bytes a card), times the ranks of
+    ``mesh``, over which the stack is sharded (train.py:76-85)."""
+    per_card = int(os.environ.get("SPR_DEVICE_DATA_BUDGET", 4 << 30))
+    return per_card * (mesh.size if mesh is not None else 1)
 
 
 def interval_due(fired: Dict[str, int], kind: str, interval,
@@ -239,15 +244,16 @@ class DenoiserTrainer(EvaluatorBase):
         )
         try:
             pipeline = DevicePatchPipeline(
-                dataset, crop=patch, max_bytes=_device_data_budget(),
+                dataset, crop=patch, max_bytes=_device_data_budget(self.mesh),
                 device=self.device)
         except ValueError as exc:
             logger.warning(
                 "device joint data plane unavailable (%s); falling back to "
                 "host batch prep - dataset capacity is now host-RAM-bound, "
                 "like the reference's DataLoader path", exc)
-            pipeline = HostPatchPipeline(dataset, crop=patch,
-                                         device=self.device)
+            return dataset, sampler, HostPatchPipeline(dataset, crop=patch,
+                                                       device=self.device)
+        self._shard(pipeline)
         return dataset, sampler, pipeline
 
     def _denoise_train_data(self, dtype):
@@ -272,12 +278,34 @@ class DenoiserTrainer(EvaluatorBase):
         )
         if os.environ.get("SPR_HOST_DENOISE_DATA", "0") != "1":
             try:
-                return base, None, DeviceDenoisePipeline(
-                    base, max_bytes=_device_data_budget(), **kwargs)
+                pipeline = DeviceDenoisePipeline(
+                    base, max_bytes=_device_data_budget(self.mesh), **kwargs)
             except ValueError as exc:
                 logger.warning("device denoise data plane unavailable (%s); "
                                "falling back to host batch prep", exc)
+            else:
+                self._shard(pipeline)
+                return base, None, pipeline
         return base, None, DenoisePatchPipeline(base, **kwargs)
+
+    def _shard(self, pipeline) -> None:
+        """Under a mesh, shard a device plane's stack over the ranks before
+        its first use (train.py:519-536, :660-669, :700-705), and log each
+        rank's share."""
+        if self.mesh is None:
+            return
+        pipeline.shard_over(self.mesh)
+        if not self.mesh.is_main:
+            return
+        n, h, w = pipeline.stack.shape
+        row_bytes = h * w * 4
+        for r in range(self.mesh.size):
+            offset, rows = shard_rows(n, self.mesh.size, r)
+            logger.info(
+                "rank %d/%d holds stack rows [%d, %d) (%d of them images), "
+                "%.1f MiB of the %.1f MiB stack", r, self.mesh.size, offset,
+                offset + rows, max(0, min(rows, n - offset)),
+                rows * row_bytes / 2**20, n * row_bytes / 2**20)
 
     def set_train_data(self, path: str):
         self.cfg[ConfigValue.TRAIN_DATA_PATH] = path

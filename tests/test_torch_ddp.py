@@ -24,6 +24,13 @@ crops, float32, from the same seeded weights and the same generator seed:
     the traced step, the flip axis the port drew), within the tolerances
     of `tests/test_torch_train_step.py`.
 
+The trainer's device data planes, sharded over the two ranks (the joint
+plane on three 256^2 micrographs, the ssdn and n2v denoise planes on three
+96x128 ones): each rank holds ceil(3/2) = 2 stack rows, its batches are
+the one-process plane's rows exactly, and a per-card budget between a
+rank's share and the whole stack keeps the device plane on the two ranks,
+where one process falls back to the host plane.
+
 The evaluator over 3 micrographs on 2 ranks gives the single-process n and
 PSNR, and writes each micrograph's files once, by the rank that owns it.
 `tiled_dense_apply` over two CPU replicas equals the one-device stitch bit
@@ -137,14 +144,61 @@ def evaluate(wt, d, runs, mesh=None):
 
 CASES = {"joint_fold": ("joint", True), "joint_seq": ("joint", False),
          "ssdn": ("denoise", None)}
+# Per-card budgets between a rank's share (2 of 3 rows) and the whole
+# stack: 3 x 256^2 and 3 x 96 x 128 float32.
+PLANE_BUDGET = {"joint": 600_000, "ssdn": 120_000, "n2v": 120_000}
+PLANE_BATCHES = 3
+
+
+def plane_batches(kind, d, mesh=None, budget=None):
+    """The trainer's data plane for ``kind`` over the 3-image sets in
+    ``d`` (under ``budget`` bytes a card, else the default): its class,
+    the stack rows it holds, and PLANE_BATCHES global batches of B (this
+    rank's rows under ``mesh``)."""
+    from spr_pick_tpu_torch.train import DenoiserTrainer
+
+    c = cfg_mod.base()
+    c[ConfigValue.TRAIN_MINIBATCH_SIZE] = B
+    if kind == "joint":
+        c[ConfigValue.ALGORITHM] = NoiseAlgorithm.SELFSUPERVISED_DENOISING
+        c[ConfigValue.NOISE_STYLE] = "gauss"
+        c[ConfigValue.NOISE_VALUE] = NoiseValue.UNKNOWN_CONSTANT
+    else:
+        c[ConfigValue.ALGORITHM] = NoiseAlgorithm(kind)
+        c[ConfigValue.NOISE_STYLE] = "gauss25"
+        c[ConfigValue.TRAIN_PATCH_SIZE] = 32
+    t = DenoiserTrainer(c, mode="joint" if kind == "joint" else "denoise",
+                        runs_dir=str(d / "plane_runs"), device="cpu",
+                        mesh=mesh)
+    if kind == "joint":
+        t.set_train_data(str(d / "plane" / "train_images.txt"))
+        t.set_train_label(str(d / "plane" / "train_coords.txt"))
+    else:
+        t.set_train_data(str(d / "mics"))
+    saved = os.environ.pop("SPR_DEVICE_DATA_BUDGET", None)
+    if budget is not None:
+        os.environ["SPR_DEVICE_DATA_BUDGET"] = str(budget)
+    try:
+        t.trainset, t.train_sampler, t.patch_pipeline = t.train_data()
+    finally:
+        os.environ.pop("SPR_DEVICE_DATA_BUDGET", None)
+        if saved is not None:
+            os.environ["SPR_DEVICE_DATA_BUDGET"] = saved
+    stack = getattr(t.patch_pipeline, "stack", None)
+    return dict(plane=type(t.patch_pipeline).__name__,
+                rows=None if stack is None else stack.images_dev.shape[0],
+                batches=[t.next_batch(B) for _ in range(PLANE_BATCHES)])
 
 
 def rank_work(mesh, d):
     """What each rank computes, in one process start: the step of every
-    case and the evaluator pass (``d`` holds their inputs)."""
+    case, the sharded data planes and the evaluator pass (``d`` holds
+    their inputs)."""
     d = Path(d)
     out = {case: one_step(str(d / f"{kind}.wt"), kind, fold, mesh)
            for case, (kind, fold) in CASES.items()}
+    out["planes"] = {kind: plane_batches(kind, d, mesh, budget)
+                     for kind, budget in PLANE_BUDGET.items()}
     out["eval"] = evaluate(str(d / "joint.wt"), d, d / "ranks", mesh)
     return out
 
@@ -223,10 +277,15 @@ def write_weights(path, kind):
 def ranks(tmp_path_factory):
     """Weights for both modes and the 3-micrograph eval set, and what two
     gloo ranks computed from them."""
+    from tests.test_e2e import make_synthetic_dataset
+
     d = tmp_path_factory.mktemp("ddp")
     for kind in ("joint", "denoise"):
         write_weights(str(d / f"{kind}.wt"), kind)
     write_eval_set(d)
+    (d / "plane").mkdir()
+    make_synthetic_dataset(d / "plane", np.random.RandomState(2), n_images=3,
+                           size=256, n_particles=4)
     return dict(dir=d, results=run_ranks(d))
 
 
@@ -432,6 +491,39 @@ def test_mesh_size_resolves_as_the_jax_trainer(monkeypatch, requested,
             mesh.resolve_size(requested, device, batch)
     else:
         assert mesh.resolve_size(requested, device, batch) == want
+
+
+# ---------------------------------------------------------------------------
+# The sharded data planes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", list(PLANE_BUDGET))
+def test_sharded_planes_give_the_one_process_batches(ranks, kind):
+    """Each rank's batches from its shard of the stack (crops summed over
+    the ranks, then its rows) equal the one-process plane's, bit for bit."""
+    want = plane_batches(kind, ranks["dir"])
+    assert want["plane"].startswith("Device") and want["rows"] == 3
+    b = B // 2
+    for r, res in enumerate(ranks["results"]):
+        got = res["planes"][kind]
+        assert len(got["batches"]) == len(want["batches"]) == PLANE_BATCHES
+        for g, w in zip(got["batches"], want["batches"]):
+            assert g.keys() == w.keys()
+            for k in w:
+                assert torch.equal(g[k], w[k][r * b: (r + 1) * b]), k
+
+
+@pytest.mark.parametrize("kind", list(PLANE_BUDGET))
+def test_each_rank_holds_its_share_within_the_card_budget(ranks, kind):
+    """Under a per-card budget between a rank's share and the whole stack,
+    two ranks keep the device plane and hold ceil(3/2) rows each; one
+    process falls back to the host plane."""
+    for res in ranks["results"]:
+        got = res["planes"][kind]
+        assert got["plane"].startswith("Device"), got["plane"]
+        assert got["rows"] == 2
+    one = plane_batches(kind, ranks["dir"], budget=PLANE_BUDGET[kind])
+    assert not one["plane"].startswith("Device") and one["rows"] is None
 
 
 # ---------------------------------------------------------------------------

@@ -151,7 +151,7 @@ def device_pipelines(data, seed=2, **kw):
 
 def test_device_stack_and_sample_coords_are_jax_s():
     got, want = device_pipelines(folder())
-    assert_same(got.images.numpy(), want._images_host)
+    assert_same(got.images_dev.numpy(), want._images_host)
     assert_same(got.heights, want.heights)
     assert_same(got.widths, want.widths)
     for shape in ((5,), (3, 4)):
@@ -167,7 +167,7 @@ def test_device_gather_cuts_the_coordinates_crops():
     flat, ys, xs = got.sample_coords((6,))
     crops = got.gather(flat, ys, xs).numpy()
     for c, f, y, x in zip(crops, flat, ys, xs):
-        img = got.images[f].numpy()
+        img = got.images_dev[f].numpy()
         assert_same(c, img[y : y + 32, x : x + 32])
         assert y + 32 <= got.heights[f] and x + 32 <= got.widths[f]
 
