@@ -141,7 +141,25 @@ script then exits nonzero and prints no result):
      --export_star`'s `.star`, and the HDF5 route
      (`tools.dataset_tool_h5`, `train start --dn_only -t x.h5`, `eval -d
      x.h5`) where h5py imports, else both commands stopping with the h5py
-     ImportError.
+     ImportError;
+ 14. graphed training chunks: two chunks of 8 steps at batch 16, 64^2,
+     through `steps.make_train_scan` / `make_denoise_scan` (the first
+     chunk's three eager warm-up steps, then replays of one CUDA graph of
+     the step) against 16 eager `train_step` calls on the same batches,
+     weights and generator seeds: the loss stacks, parameters, BatchNorm
+     statistics, Adam moments and count, and the generators' states bit
+     for bit, for joint in float32 (TF32 off, cudnn.deterministic) and
+     bf16, ssdn and n2v in bf16; joint float32 at cuDNN's default
+     algorithms beside a second eager run (printed, not gated: those sum
+     in no fixed order); samples/s of 8-step windows graphed against eager
+     for joint, ssdn and n2v at batch 16 bf16 (medians of 5 with their
+     spreads), host launches a step (torch.profiler) and the idle share of
+     three traced chunks of 3 steps; a run stopped after its first graphed
+     chunk and resumed from its `.training` against the run uninterrupted:
+     weights, BatchNorm statistics and Adam moments bit for bit, the
+     snapshot's Adam count the true step count.  Phase 10's `train start`
+     must log graphed chunks, and its in-process trainer (chunks of 3
+     steps) must replay its graph and launch K1 in each validation pass.
 
 The weights are random, made from a seed.  The detector's 1x1 classifier
 takes the absolute value of its random weights and a scale and bias fitted
@@ -239,29 +257,34 @@ def host_ms(fn, runs=RUNS):
     return out
 
 
-def kernel_ms(fn, names, runs=RUNS):
+def kernel_ms(fn, names, runs=RUNS, sessions=3):
     """Per-run device time of each kernel whose name holds one of ``names``,
-    from torch.profiler, after one warm-up; each must run once a run."""
+    from torch.profiler, after one warm-up; each must run once a run.  A
+    session whose trace lost a kernel's record (CUPTI drops one now and
+    then: 4 of 5 pre-pass kernels seen once, in 5 runs) is traced again,
+    up to ``sessions`` sessions."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    out = {n: [] for n in names}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            for n in names:
-                if n in e.name:
-                    out[n].append((e.time_range.end - e.time_range.start) / 1e3)
-    for n, ms in out.items():
-        if len(ms) != runs:
-            raise AssertionError(f"the profiler saw {len(ms)} {n} kernels in "
-                                 f"{runs} runs")
-    return out
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        out = {n: [] for n in names}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                for n in names:
+                    if n in e.name:
+                        out[n].append(
+                            (e.time_range.end - e.time_range.start) / 1e3)
+        if all(len(ms) == runs for ms in out.values()):
+            return out
+    raise AssertionError(f"the profiler saw {[len(ms) for ms in out.values()]}"
+                         f" of {names} kernels in {runs} runs, {sessions} "
+                         f"sessions")
 
 
 def particle_micrograph(shape, seed: int):
@@ -1249,6 +1272,11 @@ def training_commands(paths, tmp: str, Picker) -> dict:
         "--mesh", "1")}
     (name,) = os.listdir(runs)
     run = os.path.join(runs, name)
+    with open(os.path.join(run, "log.txt")) as f:
+        graphed = re.search(r"graphed chunks: (\d+) steps replayed from a "
+                            r"CUDA graph after (\d+) eager", f.read())
+    if not graphed or int(graphed.group(1)) < 1:
+        raise AssertionError("train start: its chunks were not graphed")
     resumed = os.path.join(tmp, "train_runs_resumed", name)
     shutil.copytree(run, resumed)
     t0 = time.perf_counter()
@@ -1283,7 +1311,10 @@ def training_commands(paths, tmp: str, Picker) -> dict:
                                                  final))["trainable"]))
     drift = max(float(np.abs(wa[k] - wb[k]).max()) for k in wa)
     first, last = losses["start"][0], losses["start"][-1]
-    log(f"train commands: start {secs['start']:.1f} s (a subprocess), "
+    log(f"train commands: start {secs['start']:.1f} s (a subprocess; "
+        f"print interval {TRAIN_ITERS // 4}, chunks of "
+        f"{TRAIN_ITERS // 4 // TRAIN_BATCH} steps: {graphed.group(1)} "
+        f"replayed from a CUDA graph after {graphed.group(2)} eager), "
         f"resume from {half} {secs['resume']:.1f} s (in process); snapshots at 0, {half}, {TRAIN_ITERS} and "
         f"{final} in both; every logged loss finite; the resumed sampler "
         f"draws the same next 64 packed indices; {len(picks[0])} picks on "
@@ -1295,20 +1326,21 @@ def training_commands(paths, tmp: str, Picker) -> dict:
 
 
 def k1_in_training(paths, tmp: str, nms_cuda, radius: int, mesh=None):
-    """An in-process DenoiserTrainer on the card, bf16 at the defaults, 64
-    iterations with a validation pass every 32: K1's launches in the run,
-    and each validation's `_scores.txt` against K1's plain version on the
-    same heatmap.  With a ``mesh`` it is one rank of a data-parallel run:
-    the rank that owns the validation micrograph picks it.  Returns
-    (trainer, launches)."""
+    """An in-process DenoiserTrainer on the card, bf16 at the defaults, 96
+    iterations with a validation pass every 48 (chunks of 3 steps, replays
+    of a CUDA graph after the first chunk's eager warm-up): K1's launches
+    in the run, and each validation's `_scores.txt` against K1's plain
+    version on the same heatmap.  With a ``mesh`` it is one rank of a
+    data-parallel run (eager chunks): the rank that owns the validation
+    micrograph picks it.  Returns (trainer, launches)."""
     from spr_pick_tpu_torch.params import ConfigValue
     from spr_pick_tpu_torch.train import DenoiserTrainer
 
     c = train_cfg("bf16")
-    c[ConfigValue.ITERATIONS] = 64
-    c[ConfigValue.EVAL_INTERVAL] = 32
-    c[ConfigValue.PRINT_INTERVAL] = 32
-    c[ConfigValue.SNAPSHOT_INTERVAL] = 64
+    c[ConfigValue.ITERATIONS] = 96
+    c[ConfigValue.EVAL_INTERVAL] = 48
+    c[ConfigValue.PRINT_INTERVAL] = 48
+    c[ConfigValue.SNAPSHOT_INTERVAL] = 96
     t = DenoiserTrainer(c, alpha=0.8, tau=0.01, mesh=mesh,
                         runs_dir=os.path.join(tmp, "inproc"))
     t.set_train_data(paths["train_images"])
@@ -1327,6 +1359,10 @@ def k1_in_training(paths, tmp: str, nms_cuda, radius: int, mesh=None):
     nms_cuda.greedy_nms_cuda.launches = 0
     t.train()
     launches = nms_cuda.greedy_nms_cuda.launches
+    chunk = t._scan.chunk
+    if (chunk.replays < 3) == (mesh is None):
+        raise AssertionError(f"training chunks: {chunk.replays} graph "
+                             f"replays, {chunk.eager_steps} eager steps")
     passes = 3 if mesh is None or mesh.is_main else 0
     if (launches < 1) == bool(passes) or len(maps) != passes:
         raise AssertionError(f"training launched K1 {launches} times over "
@@ -1350,7 +1386,8 @@ def k1_in_training(paths, tmp: str, nms_cuda, radius: int, mesh=None):
             f"{launches} launches over {len(maps)} validation passes; each "
             f"pass's _scores.txt equals K1's plain version on its heatmap "
             f"({', '.join(str(len(read_rows(p)) - 1) for _, p in maps)} "
-            f"rows)")
+            f"rows); chunks of 3 steps: {chunk.replays} graph replays "
+            f"after {chunk.eager_steps} eager steps")
     return t, launches
 
 
@@ -1384,8 +1421,7 @@ def time_training(t, gpu: str) -> None:
         ev[0].record()
         b = batch()
         ev[1].record()
-        for p in state.opt.params:
-            p.grad = None
+        state.opt.zero_grad()
         loss, _ = den.joint_train_pipeline(b, 0.8, 0.01, generator=gen)
         loss.backward()
         ev[2].record()
@@ -1793,9 +1829,10 @@ def time_denoise_training(run: str, gpu: str, profile: bool) -> float:
     return rate
 
 
-def denoise_phase(tmp: str, Picker, nms_cuda, gpu: str) -> int:
+def denoise_phase(tmp: str, Picker, nms_cuda, gpu: str):
     """Phase 11.  Returns K1's launches in the denoise-only runs (0: a
-    denoise-only pipeline has no detector output to pick from)."""
+    denoise-only pipeline has no detector output to pick from) and the
+    ssdn and n2v run dirs."""
     from spr_pick_tpu_torch.data.noisy import prepare_batch
     from spr_pick_tpu_torch.params import NoiseAlgorithm
 
@@ -1839,7 +1876,7 @@ def denoise_phase(tmp: str, Picker, nms_cuda, gpu: str) -> int:
     torch.backends.cuda.matmul.allow_tf32 = True
     for algo in ("ssdn", "n2v"):
         time_denoise_training(runs[algo], gpu, profile=algo == "ssdn")
-    return launches
+    return launches, runs
 
 
 # ---------------------------------------------------------------------------
@@ -2640,6 +2677,320 @@ def hdf5_route(paths, folder: str, tmp: str) -> None:
         f"{len(os.listdir(os.path.join(ev, run_ev, 'eval_imgs')))} images")
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: graphed training chunks
+# ---------------------------------------------------------------------------
+
+GRAPH_K = 8          # steps a chunk in 14a-c
+TRACE_K = 3          # steps a chunk in the three traced chunks of 14c
+GRAPH_LRS = np.linspace(1e-4, 5e-5, GRAPH_K).astype(np.float32)
+# Graphed against eager: the same kernels on the same inputs and draws, so
+# bit for bit where the step's kernels are deterministic.  bf16 at the
+# defaults is; float32 is with cudnn.deterministic, and without it its
+# weight-gradient convolutions sum in no fixed order, so two eager runs
+# differ too: that case is printed beside an eager rerun, not gated.
+# The host calls that put work on the device, as torch.profiler names them.
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                "cudaMemsetAsync")
+
+
+def host_launches(fn) -> int:
+    """The host's kernel, graph, copy and memset launches in one call of
+    ``fn``, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CPU
+               and e.name in LAUNCH_CALLS)
+
+
+def state_tensors(state):
+    """(name, tensor) of everything a train step writes."""
+    den, opt = state.denoiser, state.opt
+    out = [(f"param/{g}/{k}", t) for g, k, t in den.named_trainable()]
+    for kind, ts in (("mu", opt.mu), ("nu", opt.nu)):
+        out += [(f"{kind}/{g}/{k}", t) for (g, k, _), t
+                in zip(den.named_trainable(), ts)]
+    names = [n for n, _ in den.model.named_buffers()]
+    if den.sigma_model is not None:
+        names += [f"sigma/{n}" for n, _ in den.sigma_model.named_buffers()]
+    buffers = den.state_tensors()[len(den.trainable_parameters()):]
+    out += [(f"bn/{n}", t) for n, t in zip(names, buffers)
+            if t.is_floating_point()]
+    return out
+
+
+def graph_diff(a, b, losses_a, losses_b) -> dict:
+    """The largest differences of run ``a`` from run ``b``: losses
+    (relative), parameters (absolute), BatchNorm statistics and Adam
+    moments (of a leaf's largest entry), and whether all are bitwise."""
+    if a.opt.count != b.opt.count or int(a.opt.count_t) != a.opt.count:
+        raise AssertionError(f"Adam count {a.opt.count} (device "
+                             f"{float(a.opt.count_t)}) vs {b.opt.count}")
+    out = dict(param=0.0, bn=0.0, mu=0.0, nu=0.0, bitwise=True)
+    for (name, x), (_, y) in zip(state_tensors(a), state_tensors(b)):
+        x, y = x.detach().float(), y.detach().float()
+        out["bitwise"] &= bool(torch.equal(x, y))
+        d = float((x - y).abs().max())
+        kind = name.split("/")[0]
+        scale = float(y.abs().max())
+        if kind != "param":
+            d = d / scale if scale > 0 else d
+        out[kind] = max(out[kind], d)
+    out["loss"] = max(float(((x - y).abs() / y.abs()).max())
+                      for x, y in zip(losses_a, losses_b))
+    out["bitwise"] &= all(torch.equal(x, y)
+                          for x, y in zip(losses_a, losses_b))
+    return out
+
+
+def diff_text(d: dict) -> str:
+    return (f"{'bitwise equal' if d['bitwise'] else 'NOT bitwise'} (loss "
+            f"stacks max rel {d['loss']:.3e}, params max |diff| "
+            f"{d['param']:.3e}, BatchNorm {d['bn']:.3e}, Adam mu "
+            f"{d['mu']:.3e}, nu {d['nu']:.3e} of a leaf's largest)")
+
+
+def joint_rows(t, k: int, rng):
+    """A chunk's host inputs from a joint trainer's sampler and plane; the
+    flips from ``rng``."""
+    pipe = t.patch_pipeline
+    packed = t.train_sampler.sample_batch(k * TRAIN_BATCH)
+    flat, ys, xs = pipe.decode(packed.reshape(k, TRAIN_BATCH))
+    flips = (rng.rand(k, TRAIN_BATCH) < 0.5).astype(np.int32)
+    return flat, ys, xs, flips, pipe.labels_for(flat, ys, xs)
+
+
+def graphed_vs_eager(kind: str, dtype: str, t, eager_runs: int = 1):
+    """Two chunks of GRAPH_K steps through the graphed chunk function (the
+    first with the eager warm-up, the second all replays) and
+    ``eager_runs`` runs of 2 GRAPH_K eager `train_step` calls on the same
+    batches, each from the same seeded weights and generator seeds.
+    ``t``: a trainer whose device plane feeds them.  Returns (graphed vs
+    the first eager run, each later eager run vs the first, the chunk)."""
+    from spr_pick_tpu_torch.data.noisy import prepare_batch_torch
+    from spr_pick_tpu_torch.denoiser import Denoiser
+    from spr_pick_tpu_torch.steps import (TrainState, make_denoise_scan,
+                                          make_optimizer, make_train_scan,
+                                          train_step)
+
+    joint = kind == "joint"
+    cfg = train_cfg(dtype) if joint else denoise_cfg(kind, dtype)
+    pipe = t.patch_pipeline
+    rng = np.random.RandomState(SEED + 72)
+    if joint:
+        rows = [joint_rows(t, GRAPH_K, rng) for _ in range(2)]
+    else:
+        rows = [pipe.sample_coords((GRAPH_K, TRAIN_BATCH)) for _ in range(2)]
+
+    def fresh():
+        den = Denoiser(cfg, mode="joint" if joint else "denoise",
+                       device="cuda")
+        den.init_variables(SEED)
+        den.train()
+        return (TrainState(0, den, make_optimizer(den)),
+                [torch.Generator(device="cuda").manual_seed(SEED + 70 + i)
+                 for i in range(2)])
+
+    state, gens = fresh()
+    if joint:
+        scan = make_train_scan(state.denoiser, 0.8, 0.01, TRAIN_PATCH)
+    else:
+        scan = make_denoise_scan(state.denoiser, 0.8, 0.01, TRAIN_PATCH,
+                                 pipe.algorithm, pipe.noise_style)
+    losses = []
+    for r in rows:
+        if joint:
+            m = scan(state, pipe.images_dev, *r, GRAPH_LRS, gens[0])
+        else:
+            m = scan(state, pipe.images_dev, *r, GRAPH_LRS, *gens)
+        losses.append(m["loss"])
+    runs = [(state, gens, losses)]
+    for _ in range(eager_runs):
+        state, gens = fresh()
+        losses = []
+        for r in rows:
+            eager = []
+            for i in range(GRAPH_K):
+                if joint:
+                    batch = {"inp": pipe.gather(r[0][i], r[1][i], r[2][i],
+                                                r[3][i]),
+                             "target": torch.from_numpy(r[4][i]).cuda()}
+                else:
+                    batch = prepare_batch_torch(
+                        pipe.gather(r[0][i], r[1][i], r[2][i]),
+                        pipe.algorithm, pipe.noise_style, gens[1])
+                out = train_step(state, batch, float(GRAPH_LRS[i]), 0.8,
+                                 0.01, generator=gens[0])
+                eager.append(torch.mean(out["loss"]).float())
+            losses.append(torch.stack(eager))
+        runs.append((state, gens, losses))
+    torch.cuda.synchronize()
+    chunk = scan.chunk
+    if chunk.replays != 2 * GRAPH_K - 3 or chunk.eager_steps != 3:
+        raise AssertionError(f"{kind} {dtype}: {chunk.replays} replays, "
+                             f"{chunk.eager_steps} eager steps")
+    for g, e in zip(runs[0][1], runs[1][1]):
+        if not torch.equal(g.get_state(), e.get_state()):
+            raise AssertionError(f"{kind} {dtype}: the graphed run's "
+                                 f"generator state differs from the eager "
+                                 f"run's")
+    diffs = [graph_diff(r[0], runs[1][0], r[2], runs[1][2])
+             for r in runs[:1] + runs[2:]]
+    return diffs[0], diffs[1:], chunk
+
+
+def chunk_rates(label: str, t, gpu: str) -> dict:
+    """samples/s of GRAPH_K-step windows through the trainer's graphed
+    chunk (`_run_chunk`) against GRAPH_K eager `train_step` calls on its
+    data plane (the per-step path), host launches a step, and the idle
+    share over three traced chunks of TRACE_K steps."""
+    from spr_pick_tpu_torch.steps import train_step
+
+    t.denoiser.train()
+    if t._scan is None:
+        t._scan = t._build_scan()
+    state, gen = t.train_state, t._train_generator
+
+    def eager(k=GRAPH_K):
+        for _ in range(k):
+            train_step(state, t.next_batch(TRAIN_BATCH), 1e-4, t.alpha,
+                       t.tau, generator=gen)
+
+    def graphed(k=GRAPH_K):
+        t._run_chunk(t.iteration, k, TRAIN_BATCH)
+
+    out = {}
+    samples = 1e3 * GRAPH_K * TRAIN_BATCH  # samples a window, ms to s
+    for name, fn in (("eager", eager), ("graphed", graphed)):
+        ms = host_ms(fn)
+        text, med = summary(ms)
+        launches = host_launches(fn) / GRAPH_K
+        prof = profile_call(lambda: [fn(TRACE_K) for _ in range(3)])
+        out[name] = (samples / med, launches)
+        log(f"rate {label} {name}, {GRAPH_K}-step windows at batch "
+            f"{TRAIN_BATCH} bf16 {TRAIN_PATCH}^2: {samples / med:.1f} "
+            f"samples/s (window {text}; samples/s min "
+            f"{samples / max(ms):.1f}, max {samples / min(ms):.1f}); "
+            f"{launches:.1f} host launches a step | {gpu}")
+        log(f"profile {label} {name}, 3 chunks of {TRACE_K} steps: {prof} "
+            f"| {gpu}")
+    if out["graphed"][1] >= out["eager"][1]:
+        raise AssertionError(f"{label}: graphed {out['graphed'][1]} host "
+                             f"launches a step, eager {out['eager'][1]}")
+    log(f"rate {label}: graphed / eager samples/s "
+        f"{out['graphed'][0] / out['eager'][0]:.3f} | {gpu}")
+    return out
+
+
+def resume_bitwise(paths10, tmp: str, gpu: str) -> None:
+    """A run stopped after its first graphed chunk and resumed from its
+    `.training` against the run uninterrupted (both 256 iterations, chunks
+    of 8 steps, bf16): the final weights, BatchNorm statistics and Adam
+    state bit for bit; the stop's snapshot holds the true Adam count."""
+    from spr_pick_tpu_torch.params import ConfigValue
+    from spr_pick_tpu_torch.train import DenoiserTrainer, resume_run
+    from spr_pick_tpu_torch.utils import checkpoint as ckpt
+
+    def trainer(name):
+        c = train_cfg("bf16")
+        c[ConfigValue.TRAIN_MINIBATCH_SIZE] = TRAIN_BATCH
+        c[ConfigValue.ITERATIONS] = 16 * TRAIN_BATCH
+        for key in (ConfigValue.PRINT_INTERVAL, ConfigValue.SNAPSHOT_INTERVAL):
+            c[key] = 8 * TRAIN_BATCH
+        t = DenoiserTrainer(c, alpha=0.8, tau=0.01,
+                            runs_dir=os.path.join(tmp, name))
+        t.set_train_data(paths10["train_images"])
+        t.set_train_label(paths10["train_coords"])
+        return t
+
+    whole = trainer("resume_whole")
+    whole.train()
+    stopped = trainer("resume_stopped")
+    run_chunk = stopped._run_chunk
+
+    def stop_after(iteration, k, batch_size):
+        stopped._stop_requested = True
+        return run_chunk(iteration, k, batch_size)
+
+    stopped._run_chunk = stop_after
+    stopped.train()
+    half = 8 * TRAIN_BATCH
+    chunk = stopped._scan.chunk
+    if stopped.iteration != half or chunk.replays != 5:
+        raise AssertionError(f"stopped at {stopped.iteration} after "
+                             f"{chunk.replays} replays")
+    snap = ckpt.load(os.path.join(stopped.run_dir_path, "training_jt",
+                                  f"model_{half:08d}.training"))
+    if int(snap["opt_state"][0]) != 8:
+        raise AssertionError(f"the snapshot's Adam count is "
+                             f"{int(snap['opt_state'][0])}, not 8")
+    resumed = resume_run(stopped.run_dir_path, device="cuda")
+    resumed.train()
+    for (name, a), (_, b) in zip(state_tensors(resumed.train_state),
+                                 state_tensors(whole.train_state)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"resumed vs uninterrupted {name}: max "
+                                 f"|diff| {float((a - b).abs().max()):.3e}")
+    log(f"resume after a graphed chunk: stopped at {half} (3 eager steps, "
+        f"{chunk.replays} replays; snapshot Adam count 8), resumed to "
+        f"{resumed.iteration} ({resumed._scan.chunk.eager_steps} eager, "
+        f"{resumed._scan.chunk.replays} replays) against the run "
+        f"uninterrupted ({whole._scan.chunk.replays} replays): weights, "
+        f"BatchNorm statistics and Adam moments bitwise equal, Adam count "
+        f"{resumed.train_state.opt.count} | {gpu}")
+
+
+def graph_phase(t10, runs11, paths10, tmp: str, gpu: str) -> None:
+    """Phase 14: graphed training chunks (14d, the command's chunks and K1
+    in the graphed trainer's validation, runs in phase 10)."""
+    from spr_pick_tpu_torch.train import resume_run
+
+    dn = {}
+    for algo in ("ssdn", "n2v"):
+        dn[algo] = resume_run(runs11[algo], device="cuda")
+        dn[algo].trainset, dn[algo].train_sampler, dn[algo].patch_pipeline = \
+            dn[algo].train_data()
+    what = (f"2 chunks of {GRAPH_K} steps at batch {TRAIN_BATCH} "
+            f"{TRAIN_PATCH}^2 (3 eager warm-up steps, {2 * GRAPH_K - 3} "
+            f"replays)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    graphed, _, _ = graphed_vs_eager("joint", "f32", t10)
+    torch.backends.cudnn.deterministic = False
+    if not graphed["bitwise"]:
+        raise AssertionError(f"joint f32 (cudnn.deterministic): graphed vs "
+                             f"eager {diff_text(graphed)}")
+    log(f"graphed vs eager joint float32 (TF32 off, cudnn.deterministic), "
+        f"{what}: {diff_text(graphed)}; tolerance: bitwise; generator "
+        f"states equal | {gpu}")
+    graphed, again, _ = graphed_vs_eager("joint", "f32", t10, eager_runs=2)
+    log(f"graphed vs eager joint float32 (TF32 off, cuDNN's default "
+        f"algorithms), {what}: graphed vs eager {diff_text(graphed)}; a "
+        f"second eager run vs the first {diff_text(again[0])} (a finding, "
+        f"not gated: the weight-gradient convolutions sum in no fixed "
+        f"order) | {gpu}")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    for kind, t in (("joint", t10), ("ssdn", dn["ssdn"]), ("n2v", dn["n2v"])):
+        graphed, _, _ = graphed_vs_eager(kind, "bf16", t)
+        if not graphed["bitwise"]:
+            raise AssertionError(f"{kind} bf16: graphed vs eager "
+                                 f"{diff_text(graphed)}")
+        log(f"graphed vs eager {kind} bf16, {what}: {diff_text(graphed)}; "
+            f"tolerance: bitwise; generator states equal | {gpu}")
+    chunk_rates("train joint", t10, gpu)
+    for algo in ("ssdn", "n2v"):
+        chunk_rates(f"dn train {algo}", dn[algo], gpu)
+    resume_bitwise(paths10, tmp, gpu)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the port on "
@@ -2873,7 +3224,8 @@ def main() -> int:
 
         # 11. Denoise-only training on the card.
         t0 = time.perf_counter()
-        launches_in_denoise = denoise_phase(tmp, Picker, nms_cuda, gpu)
+        launches_in_denoise, runs11 = denoise_phase(tmp, Picker, nms_cuda,
+                                                    gpu)
         log(f"phase 11 took {time.perf_counter() - t0:.1f} s")
 
         # 12. Reference checkpoints; data parallelism.
@@ -2894,6 +3246,11 @@ def main() -> int:
         trained_phase(Picker, run10, paths10, tmp)
         tools_phase(paths10, eval8, paths, tmp)
         log(f"phase 13 took {time.perf_counter() - t0:.1f} s")
+
+        # 14. Graphed training chunks.
+        t0 = time.perf_counter()
+        graph_phase(trainer, runs11, paths10, tmp, gpu)
+        log(f"phase 14 took {time.perf_counter() - t0:.1f} s")
 
     h, w = shape
     bound_ms, bound_by = k1_bound(h, w, k, count, radius)

@@ -457,11 +457,17 @@ class DevicePatchPipeline:
         return self.stack.crops(flat, ys, xs, flips, self.crop,
                                 centered=True)[..., None]
 
+    def flips(self, shape) -> np.ndarray:
+        """0/1 W-flip bits of ``shape`` from the flip RandomState: a chunk's
+        (K, B) draw is the numbers of K batches' (B,) draws."""
+        return (self._np_rng.rand(*np.atleast_1d(shape)) < 0.5).astype(
+            np.int32)
+
     def batch(self, packed_indices: np.ndarray) -> Dict[str, torch.Tensor]:
         flat, ys, xs = self.decode(packed_indices)
         self.check_in_bounds(flat, ys, xs)
         labels = self.labels_for(flat, ys, xs)
-        flips = (self._np_rng.rand(len(flat)) < 0.5).astype(np.int32)
+        flips = self.flips(len(flat))
         return {"inp": self.gather(flat, ys, xs, flips),
                 "target": torch.from_numpy(labels).to(self.device)}
 

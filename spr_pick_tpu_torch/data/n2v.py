@@ -140,5 +140,7 @@ def manipulate_torch(images: torch.Tensor,
     out = torch.cat([images, spare], dim=1)
     out[item, rows, cols] = donor
     mask = torch.zeros((b, h + 1, w), dtype=torch.float32, device=dev)
-    mask[item, rows, cols] = 1.0
+    # A device scalar: a Python one would be copied from the host, which a
+    # CUDA graph cannot capture.
+    mask[item, rows, cols] = torch.ones((), device=dev)
     return out[:, :h], mask[:, :h]

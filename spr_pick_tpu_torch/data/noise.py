@@ -111,8 +111,9 @@ def add_style_torch(images: torch.Tensor, style: str,
                 for v in params]
         if len(vals) == 1:
             return torch.full(pshape, vals[0], dtype=torch.float32, device=dev)
-        lo, hi = (torch.tensor(v, dtype=torch.float32, device=dev)
-                  for v in vals)
+        # float32 bounds as host constants: no host-to-device copy, so a
+        # CUDA graph can capture the draw.
+        lo, hi = (np.float32(v) for v in vals)
         u = uniform
         if u is None:
             u = torch.rand(pshape, generator=generator, device=dev)
@@ -120,8 +121,8 @@ def add_style_torch(images: torch.Tensor, style: str,
         # exact value.  In float64 the product is exact and the sum rounds
         # before the cast to float32, which differs from one rounding only
         # where the float64 sum lands on a float32 tie.
-        scaled = (u.double() * (hi - lo).double() + lo.double()).float()
-        return torch.maximum(lo, scaled)
+        scaled = (u.double() * float(hi - lo) + float(lo)).float()
+        return torch.clamp(scaled, min=float(lo))
 
     if noise_type == "gauss":
         coeff = param()

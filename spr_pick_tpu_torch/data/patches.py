@@ -169,6 +169,13 @@ class DeviceDenoisePipeline:
             self.gather(flat, ys, xs), self.algorithm, self.noise_style,
             self.generator, training=True, noise_input=self.noise_input)
 
+    def count_batches(self, k: int) -> None:
+        """Count ``k`` batches that a training chunk drew from ``generator``
+        itself (`steps.make_denoise_scan`), so ``key_counter`` still counts
+        every batch; the JAX scan leaves its counter alone, as it draws
+        from the trainer's key."""
+        self._key_counter += k
+
     def _reseed(self) -> None:
         """The generator for a position known only by its batch count."""
         self.generator.manual_seed((self._gen_seed << 32) | self._key_counter)

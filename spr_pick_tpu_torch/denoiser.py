@@ -32,7 +32,6 @@ from __future__ import annotations
 import os
 from typing import Dict, List, Optional, Tuple
 
-import numpy as np
 import torch
 
 from spr_pick_tpu_torch import cfg as cfg_mod
@@ -491,7 +490,8 @@ class Denoiser:
     def _nll_outputs(self, inp, net_out, batch) -> Dict:
         """The ssdn NLL/PME (denoiser.py:452-490): one channel with
         sigma_x = A**2; several (denoise mode) with sigma_x = A^T A, A
-        diagonal or upper triangular (row-major, as ``np.triu_indices``),
+        diagonal or upper triangular (row-major, as ``np.triu_indices``; the
+        indices are made on the device, which a CUDA graph can capture),
         through `full_cov_nll_pme`."""
         c = self.in_channels
         if c != 1 and self.mode == "joint":
@@ -511,7 +511,7 @@ class Denoiser:
                 sigma_x = torch.diag_embed(a_c ** 2)
             else:
                 tri = a_c.new_zeros(a_c.shape[:-1] + (c, c))
-                rows, cols = np.triu_indices(c)
+                rows, cols = torch.triu_indices(c, c, device=a_c.device)
                 tri[..., rows, cols] = a_c
                 sigma_x = torch.einsum("...ji,...jk->...ik", tri, tri)
             loss_map, pme_out, net_std, noise_std_out = \

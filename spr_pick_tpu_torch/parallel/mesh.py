@@ -181,11 +181,13 @@ def shard_stack(host_stack, mesh: Mesh) -> Tuple[torch.Tensor, int]:
 
 def owned_crops(local: torch.Tensor, offset: int, flat, ys, xs, flips,
                 crop: int, centered: bool) -> torch.Tensor:
-    """(B, crop, crop) crops of the B global draws (numpy ``flat``, ``ys``,
-    ``xs``, ``flips``), cut from the shard ``local`` whose first row is
-    ``offset`` where it holds image ``flat[b]``, exact zeros elsewhere: one
-    rank's part of JAX `steps.py:161-211`.  Summed over the ranks
-    (`Mesh.global_sum`) they are the crops of the whole stack.
+    """(B, crop, crop) crops of the B global draws ``flat``, ``ys``,
+    ``xs``, ``flips`` (numpy arrays, or integer tensors on the shard's
+    device, which a CUDA graph can capture: no host copy), cut from the
+    shard ``local`` whose first row is ``offset`` where it holds image
+    ``flat[b]``, exact zeros elsewhere: one rank's part of JAX
+    `steps.py:161-211`.  Summed over the ranks (`Mesh.global_sum`) they are
+    the crops of the whole stack.
 
     ``centered=True`` (the joint plane): (ys, xs) are crop centres and a
     set flip bit mirrors the crop along W.  ``centered=False`` (the denoise
@@ -193,7 +195,11 @@ def owned_crops(local: torch.Tensor, offset: int, flat, ys, xs, flips,
     image; the row index is clamped into the shard before the mask, so a
     row this rank does not hold reads a row it does."""
     draws = [flat, ys, xs] + ([] if flips is None else [flips])
-    idx = torch.from_numpy(np.stack(draws).astype(np.int64)).to(local.device)
+    if isinstance(flat, torch.Tensor):
+        idx = torch.stack(draws).to(torch.int64)
+    else:
+        idx = torch.from_numpy(np.stack(draws).astype(np.int64)).to(
+            local.device)
     half = crop // 2 if centered else 0
     rel = idx[0] - offset
     own = (rel >= 0) & (rel < local.shape[0])

@@ -3,9 +3,9 @@ validation.
 
 The PyTorch port of `spr_pick_tpu/train.py` (`DenoiserTrainer` and
 `resume_run`; parity: `spr_pick/train.py`), in joint mode and in
-denoise-only mode.  A step is `steps.train_step` on a batch from the data
-plane, with metrics kept on the device until a print, eval or snapshot
-boundary:
+denoise-only mode.  The steps between two print, eval or snapshot
+boundaries run as one chunk where the JAX trainer runs its K-step scan
+(train.py:634-710), with metrics kept on the device until a boundary:
 
   * a TXT manifest with coordinates (joint training; also denoise-only
     ssdn) takes `data/micrograph.py:DevicePatchPipeline`, or
@@ -14,6 +14,15 @@ boundary:
     `data/patches.py:DeviceDenoisePipeline`, or `DenoisePatchPipeline` past
     the budget or under ``SPR_HOST_DENOISE_DATA=1``, each drawing its own
     batch.
+
+On a device plane a chunk of K > 1 steps (any K under a mesh) is one call
+of `steps.make_train_scan` or `make_denoise_scan` (their sharded forms
+under a mesh): the host draws the K batches' indices, labels and flips and
+the K learning rates, and on a CUDA device each step is a replay of one
+CUDA graph of the step (`utils/cuda_graph.py`), on the CPU and under a
+mesh the step itself.  The host planes, and a single step between two
+boundaries, take `steps.train_step` once a step (`_can_scan`,
+train.py:793-810).
 
 Intervals fire on crossings of their multiples, not exact hits
 (`interval_due`), so a batch that does not divide an interval still fires
@@ -27,9 +36,11 @@ next boundary, without a `final-*.wt`.
 
 Randomness: the sampler, the flips and the host denoise plane are numpy
 `RandomState`s, as in the JAX package, so they draw the same indices,
-crops and noise.  The pipeline's sample noise and flip draw come from a
-`torch.Generator` derived from the JAX key's value (``PRNGKey(seed + 1)``),
-and the device denoise plane draws from its own generator; their states
+crops and noise; a chunk draws its K batches' flips in one call, the same
+numbers as K steps draw (the JAX scan draws its flips in the program).
+The pipeline's sample noise and flip draw come from a `torch.Generator`
+derived from the JAX key's value (``PRNGKey(seed + 1)``), and the device
+denoise plane draws from its own generator; their states
 are saved in every `.training`, so a resumed run draws what the
 uninterrupted one would.  Validation draws its noise from a generator
 seeded with the cfg seed at each pass.  The device is the GPU unless the
@@ -74,8 +85,11 @@ from spr_pick_tpu_torch.eval import EvaluatorBase
 from spr_pick_tpu_torch.parallel.mesh import shard_rows
 from spr_pick_tpu_torch.params import (ConfigValue, DatasetType, HistoryValue,
                                        PipelineOutput, StateValue)
-from spr_pick_tpu_torch.steps import TrainState, init_state, make_optimizer, \
-    train_step
+from spr_pick_tpu_torch.steps import (TrainState, init_state,
+                                      make_denoise_scan,
+                                      make_denoise_scan_sharded,
+                                      make_optimizer, make_train_scan,
+                                      make_train_scan_sharded, train_step)
 from spr_pick_tpu_torch.utils import checkpoint as ckpt
 from spr_pick_tpu_torch.utils.logging_helper import setup as setup_logging
 from spr_pick_tpu_torch.utils.metrics import (Metric, MetricDict, TrackedTime,
@@ -156,6 +170,8 @@ class DenoiserTrainer(EvaluatorBase):
         self.trainset: Optional[MicrographDataset] = None
         self.patch_pipeline = None
         self.train_sampler = None
+        # The K-step chunk function of a device data plane (None: per step).
+        self._scan = None
 
     # ------------------------------------------------------------------
     # State
@@ -368,6 +384,8 @@ class DenoiserTrainer(EvaluatorBase):
             self.testset, self.test_sampler = self.test_data()
             logger.info("Loaded Validation Dataset.")
 
+        if self._scan is None:
+            self._scan = self._build_scan()
         self._stop_requested = False
         restore_handlers = self._install_stop_handlers()
         try:
@@ -430,17 +448,25 @@ class DenoiserTrainer(EvaluatorBase):
                     self.snapshot()
                 if iteration >= self.cfg[ConfigValue.ITERATIONS]:
                     break
-                for _ in range(self._chunk_steps(iteration, batch_size)):
-                    pending_metrics.append(train_step(
+                k = self._chunk_steps(iteration, batch_size)
+                if self._scan is not None and (
+                        k > 1 or self.mesh is not None):
+                    pending_metrics.append(
+                        (self._run_chunk(iteration, k, batch_size), k))
+                    self.state[StateValue.ITERATION] += k * batch_size
+                    continue
+                for _ in range(k):
+                    pending_metrics.append((train_step(
                         self.train_state, self.next_batch(batch_size),
                         self.learning_rate,
                         self.alpha, self.tau, generator=self._train_generator,
-                    ))
+                    ), 1))
                     self.state[StateValue.ITERATION] += batch_size
 
             self._flush_metrics(pending_metrics, batch_size)
             if capture is not None:
                 capture.stop()
+            self._log_chunks()
             logger.info(separator())
             logger.info("TRAINING FINISHED")
             logger.info(separator())
@@ -483,17 +509,78 @@ class DenoiserTrainer(EvaluatorBase):
         boundary = min(boundary, self.cfg[ConfigValue.ITERATIONS])
         return max((boundary - iteration) // batch_size, 1)
 
+    def _scan_lrs(self, iteration: int, k: int,
+                  batch_size: int) -> np.ndarray:
+        """The K steps' learning rates of a chunk (train.py:769-783)."""
+        return np.array([
+            compute_ramped_lrate(
+                iteration + i * batch_size, self.cfg[ConfigValue.ITERATIONS],
+                self.cfg[ConfigValue.LR_RAMPDOWN_FRACTION],
+                self.cfg[ConfigValue.LR_RAMPUP_FRACTION],
+                self.base_learning_rate)
+            for i in range(k)], np.float32)
+
+    def _build_scan(self):
+        """The chunk function of a device data plane (train.py:518-545,
+        sharded under a mesh); None for the host planes."""
+        pipe = self.patch_pipeline
+        if (isinstance(pipe, DevicePatchPipeline)
+                and self.train_sampler is not None):
+            if self.mesh is None:
+                return make_train_scan(self.denoiser, self.alpha, self.tau,
+                                       crop=pipe.crop)
+            return make_train_scan_sharded(self.denoiser, self.alpha,
+                                           self.tau, pipe.crop, self.mesh)
+        if isinstance(pipe, DeviceDenoisePipeline):
+            args = (self.denoiser, self.alpha, self.tau, pipe.patch,
+                    pipe.algorithm, pipe.noise_style)
+            if self.mesh is None:
+                return make_denoise_scan(*args, noise_input=pipe.noise_input)
+            return make_denoise_scan_sharded(*args, self.mesh,
+                                             noise_input=pipe.noise_input)
+        return None
+
+    def _run_chunk(self, iteration: int, k: int,
+                   batch_size: int) -> Dict[str, torch.Tensor]:
+        """K steps as one chunk (train.py:634-710): the host draws the K
+        batches' indices (on the joint plane also their labels and flips)
+        and the K learning rates, the chunk function does the rest."""
+        pipe = self.patch_pipeline
+        lrs = self._scan_lrs(iteration, k, batch_size)
+        if self.train_sampler is not None:
+            packed = self.train_sampler.sample_batch(k * batch_size)
+            flat, ys, xs = pipe.decode(packed.reshape(k, batch_size))
+            pipe.check_in_bounds(flat, ys, xs)
+            labels = pipe.labels_for(flat, ys, xs)
+            flips = pipe.flips((k, batch_size))
+            return self._scan(self.train_state, pipe.images_dev, flat, ys,
+                              xs, flips, labels, lrs, self._train_generator)
+        # One (K, B) draw, as the JAX trainer draws: not the order of K
+        # draws of (B,).
+        flat, ys, xs = pipe.sample_coords((k, batch_size))
+        pipe.count_batches(k)
+        return self._scan(self.train_state, pipe.images_dev, flat, ys, xs,
+                          lrs, self._train_generator, pipe.generator)
+
+    def _log_chunks(self) -> None:
+        chunk = getattr(self._scan, "chunk", None)
+        if chunk is not None and (chunk.replays or chunk.eager_steps):
+            logger.info("graphed chunks: %d steps replayed from a CUDA "
+                        "graph after %d eager warm-up steps", chunk.replays,
+                        chunk.eager_steps)
+
     def _flush_metrics(self, pending, batch_size: int):
-        """Copy the buffered device metrics to the host history
-        (train.py:812-837)."""
+        """Copy the buffered device metrics, ``(metrics, steps)`` pairs of
+        one step's per-item values or a chunk's per-step means, to the
+        host history (train.py:812-837)."""
 
         def as_batched(value):
             arr = value.float().cpu().numpy()
             return arr.reshape(1) if arr.ndim == 0 else arr
 
         train_history = self.state[StateValue.HISTORY][HistoryValue.TRAIN]
-        for metrics in pending:
-            train_history["n"] += batch_size
+        for metrics, steps in pending:
+            train_history["n"] += batch_size * steps
             for key in ("loss", "denoise_loss", "det_loss", "aug_loss"):
                 if key in metrics:
                     train_history[key] += as_batched(metrics[key])
@@ -563,7 +650,7 @@ class DenoiserTrainer(EvaluatorBase):
             for dst, tree in ((opt.mu, mu), (opt.nu, nu)):
                 for t, src in zip(dst, weights.flax_to_named(tree, names)):
                     t.copy_(src)
-        opt.count = int(np.asarray(count))
+        opt.set_count(int(np.asarray(count)))
 
     def snapshot(self, output_name: str = None, subdir: str = None,
                  model_only: bool = False):

@@ -31,6 +31,12 @@ the one-process plane's rows exactly, and a per-card budget between a
 rank's share and the whole stack keeps the device plane on the two ranks,
 where one process falls back to the host plane.
 
+Two steps of the sharded K-step chunk functions (`make_train_scan_sharded`,
+`make_denoise_scan_sharded`; eager under a mesh) on the two ranks equal
+the chunk on the whole stack in one process: the first step's metrics
+within the step's tolerances, the ranks bit for bit alike, the parameters
+within two learning rates a step.
+
 The evaluator over 3 micrographs on 2 ranks gives the single-process n and
 PSNR, and writes each micrograph's files once, by the rank that owns it.
 `tiled_dense_apply` over two CPU replicas equals the one-device stitch bit
@@ -190,6 +196,58 @@ def plane_batches(kind, d, mesh=None, budget=None):
                 batches=[t.next_batch(B) for _ in range(PLANE_BATCHES)])
 
 
+CHUNK_K = 2
+
+
+def one_chunk(wt, kind, mesh=None):
+    """CHUNK_K steps of the K-step chunk function from the weights in
+    ``wt`` on a 3-image stack (`make_train_scan_sharded` /
+    `make_denoise_scan_sharded` on this rank's shard under ``mesh``,
+    `make_train_scan` / `make_denoise_scan` on the whole stack without);
+    numpy results."""
+    from spr_pick_tpu_torch.parallel.mesh import shard_stack
+    from spr_pick_tpu_torch.steps import (make_denoise_scan,
+                                          make_denoise_scan_sharded,
+                                          make_train_scan,
+                                          make_train_scan_sharded)
+
+    rng = np.random.RandomState(3)
+    stack = rng.rand(3, 96, 128).astype(np.float32)
+    shape = (CHUNK_K, B)
+    flat = rng.randint(3, size=shape).astype(np.int32)
+    half = PATCH // 2 if kind == "joint" else 0
+    ys = rng.randint(half, 96 - PATCH + half + 1, size=shape).astype(np.int32)
+    xs = rng.randint(half, 128 - PATCH + half + 1, size=shape).astype(
+        np.int32)
+    lrs = np.full(CHUNK_K, LR, np.float32)
+    state = ckpt.load(wt)
+    den = Denoiser(step_cfg(kind), mode=kind, device="cpu", mesh=mesh,
+                   fold_tta=True if kind == "joint" else None)
+    den.load_variables(state["trainable"], state["static"])
+    den.train()
+    ts = TrainState(step=0, denoiser=den, opt=make_optimizer(den))
+    gens = [torch.Generator().manual_seed(SEED + i) for i in range(2)]
+    if mesh is None:
+        images = torch.from_numpy(stack)
+    else:
+        images = shard_stack(stack, mesh)[0]
+    if kind == "joint":
+        args = (flat, ys, xs, rng.randint(2, size=shape).astype(np.int32),
+                rng.choice(TARGET, shape), lrs, gens[0])
+        scan = (make_train_scan(den, ALPHA, TAU, PATCH) if mesh is None else
+                make_train_scan_sharded(den, ALPHA, TAU, PATCH, mesh))
+    else:
+        algo = step_cfg(kind)[ConfigValue.ALGORITHM]
+        args = (flat, ys, xs, lrs, *gens)
+        scan = (make_denoise_scan(den, ALPHA, TAU, PATCH, algo, "gauss25")
+                if mesh is None else make_denoise_scan_sharded(
+                    den, ALPHA, TAU, PATCH, algo, "gauss25", mesh))
+    metrics = scan(ts, images, *args)
+    after, static = den.variables()
+    return dict(metrics={k: v.numpy() for k, v in metrics.items()},
+                after=after, static=static, count=ts.opt.count)
+
+
 def rank_work(mesh, d):
     """What each rank computes, in one process start: the step of every
     case, the sharded data planes and the evaluator pass (``d`` holds
@@ -200,6 +258,13 @@ def rank_work(mesh, d):
     out["planes"] = {kind: plane_batches(kind, d, mesh, budget)
                      for kind, budget in PLANE_BUDGET.items()}
     out["eval"] = evaluate(str(d / "joint.wt"), d, d / "ranks", mesh)
+    out["chunks"] = {kind: one_chunk(str(d / f"{kind}.wt"), kind, mesh)
+                     for kind in ("joint", "denoise")}
+    if mesh.is_main:
+        # The one-process chunks too, here on two threads, not in a test
+        # worker beside five others.
+        out["one_chunk"] = {kind: one_chunk(str(d / f"{kind}.wt"), kind)
+                            for kind in ("joint", "denoise")}
     return out
 
 
@@ -629,6 +694,35 @@ def test_train_command_on_two_cpu_ranks_then_resumed_on_one(tmp_path,
     a, b = flat(again["trainable"]), flat(final["trainable"])
     assert np.abs(a - b).max() <= 4 * 2 * 1e-4
     assert np.median(np.abs(a - b)) <= 1e-6
+
+
+
+@pytest.mark.parametrize("kind", ["joint", "denoise"])
+def test_sharded_chunks_match_one_process(ranks, kind):
+    """Two steps of the sharded chunk function on two gloo ranks (each
+    holding 2 of the 3 stack rows, its rows of the batch, gradients
+    averaged before Adam) against the chunk on the whole stack in one
+    process: the first step's metrics within the step's tolerances, the
+    ranks' parameters and BatchNorm statistics bit for bit equal, and the
+    parameters within two learning rates a step of one process's (Adam's
+    sign flips, `test_params_after_adam_match_one_process`; rank 0's child
+    computes the one-process chunk)."""
+    want = ranks["results"][0]["one_chunk"][kind]
+    got = [r["chunks"][kind] for r in ranks["results"]]
+    for g in got:
+        assert g["count"] == want["count"] == CHUNK_K
+        assert g["metrics"].keys() == want["metrics"].keys()
+        for k, w in want["metrics"].items():
+            assert g["metrics"][k].shape == w.shape == (CHUNK_K,), k
+            rtol, atol = (0, ATOL_AUG) if k == "aug_loss" else (RTOL_LOSS, 0)
+            np.testing.assert_allclose(g["metrics"][k][0], w[0], rtol=rtol,
+                                       atol=atol, err_msg=k)
+        assert np.abs(flat(g["after"]) - flat(want["after"])).max() <= \
+            2 * CHUNK_K * LR + ATOL_ADAM
+    for key in ("after", "static"):
+        for (name, x), (_, y) in zip(leaves(got[0][key]),
+                                     leaves(got[1][key])):
+            assert np.array_equal(x, y), name
 
 
 if __name__ == "__main__":

@@ -37,6 +37,18 @@ print("MODULES", " ".join(mods))
 print("BAD", bad)
 print("LAZY", sorted(k for k in sys.modules
                      if k.split(".")[0] in ("scipy", "h5py")))
+from spr_pick_tpu_torch import steps
+from spr_pick_tpu_torch.utils.cuda_graph import GraphedSteps
+scans = [steps.make_train_scan(None, 0.8, 0.01, 64),
+         steps.make_train_scan_sharded(None, 0.8, 0.01, 64, None),
+         steps.make_denoise_scan(None, 0.8, 0.01, 64, "n2v", "gauss25"),
+         steps.make_denoise_scan_sharded(None, 0.8, 0.01, 64, "n2v",
+                                         "gauss25", None)]
+GraphedSteps(lambda row: row, [], [])
+print("SCANS", sum(callable(f) for f in scans), sorted(
+    k for k in sys.modules
+    if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "spr_pick_tpu",
+                           "spr_pick")))
 """
 
 
@@ -48,6 +60,8 @@ def test_port_imports_no_jax_in_a_fresh_process():
     assert "BAD []" in out.stdout, out.stdout
     # scipy and h5py are imported by the functions that use them.
     assert "LAZY []" in out.stdout, out.stdout
+    # The K-step chunks and the graph wrapper build without either.
+    assert "SCANS 4 []" in out.stdout, out.stdout
     n = int(re.search(r"IMPORTED (\d+)", out.stdout).group(1))
     assert n >= 20  # every submodule was imported
     mods = set(re.search(r"MODULES (.*)", out.stdout).group(1).split())
@@ -56,6 +70,7 @@ def test_port_imports_no_jax_in_a_fresh_process():
             "spr_pick_tpu_torch.data.star_export",
             "spr_pick_tpu_torch.utils.image_io",
             "spr_pick_tpu_torch.train", "spr_pick_tpu_torch.steps",
+            "spr_pick_tpu_torch.utils.cuda_graph",
             "spr_pick_tpu_torch.data.sampler",
             "spr_pick_tpu_torch.utils.schedule",
             "spr_pick_tpu_torch.utils.tfevents",

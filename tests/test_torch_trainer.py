@@ -142,6 +142,9 @@ def port_events(dataset, tmp_path, monkeypatch):
     t._train_generator = None
     monkeypatch.setattr(train_mod, "train_step", lambda *a, **k: {
         "loss": torch.zeros(12, 1)})
+    # Chunks of K > 1 steps go through the K-step chunk function.
+    monkeypatch.setattr(train_mod, "make_train_scan", lambda *a, **k: (
+        lambda state, images, flat, *rest: {"loss": torch.zeros(len(flat))}))
     t.validate = lambda: events.append(("eval", t.iteration))
     t.snapshot = lambda **kw: events.append(
         ("snapshot", t.iteration, kw.get("output_name")))
@@ -217,21 +220,26 @@ def test_resume_from_the_middle_is_bit_exact(run_a, tmp_path):
 def test_sigterm_snapshots_and_stops(dataset, tmp_path, monkeypatch):
     t = trainer(dataset, tmp_path, validate=False, iterations=10 ** 6,
                 print_interval=8, snapshot=10 ** 6)
-    step = train_mod.train_step
+    make_scan = train_mod.make_train_scan
     calls = []
 
-    def step_then_signal(*a, **k):
-        calls.append(1)
-        if len(calls) == 3:
-            os.kill(os.getpid(), signal.SIGTERM)
-        return step(*a, **k)
+    def signalling_scan(*a, **k):
+        scan = make_scan(*a, **k)
 
-    monkeypatch.setattr(train_mod, "train_step", step_then_signal)
+        def chunk_then_signal(state, images, flat, *rest):
+            calls.append(len(flat))
+            if len(calls) == 2:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return scan(state, images, flat, *rest)
+
+        return chunk_then_signal
+
+    monkeypatch.setattr(train_mod, "make_train_scan", signalling_scan)
     t.train()
     run = t.run_dir_path
     # Chunks run to the next print boundary (8 = 2 steps): the signal in the
     # second chunk stops the run at 16.
-    assert t.iteration == 16 and len(calls) == 4
+    assert t.iteration == 16 and calls == [2, 2]
     assert sorted(os.listdir(os.path.join(run, "training_jt"))) == [
         "model_00000000.training", "model_00000016.training"]
     assert not [f for f in os.listdir(run) if f.endswith(".wt")]
