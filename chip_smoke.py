@@ -109,9 +109,10 @@ script then exits nonzero and prints no result):
      that heatmap, and ``pick -m`` and ``eval -m`` take the files; then
      data parallelism at D = min(2, cards): at D = 1 an NCCL group of one
      runs the float32 joint step at batch 16, which must equal the one-card
-     step, and an in-process trainer in that group validates through K1
-     (K1 == plain on every `_scores.txt`); at D >= 2 the D-rank step (one
-     process a card) equals the one-card step, the ranks hold identical
+     step, and an in-process trainer in that group replays its graphed
+     chunks (its log must say so) and validates through K1 (K1 == plain on
+     every `_scores.txt`); at D >= 2 the D-rank step (one process a card)
+     equals the one-card step, the ranks hold identical
      parameters, and the tiled 4096x5760 pick over D cards gives the
      one-card picks; the trainers' stacks are sharded over the D ranks
      (each rank's rows and bytes); samples/s through the sharded plane at
@@ -159,7 +160,19 @@ script then exits nonzero and prints no result):
      weights, BatchNorm statistics and Adam moments bit for bit, the
      snapshot's Adam count the true step count.  Phase 10's `train start`
      must log graphed chunks, and its in-process trainer (chunks of 3
-     steps) must replay its graph and launch K1 in each validation pass.
+     steps) must replay its graph and launch K1 in each validation pass;
+ 14e. the sharded chunks (`make_train_scan_sharded`,
+     `make_denoise_scan_sharded`) in an NCCL group of one, on phase 10's
+     and 11's runs resumed as its rank (stacks sharded): two chunks of 8
+     steps at batch 16, 64^2, graphed (the collectives captured) against
+     the same steps as eager `train_step` calls on the rank's slice of
+     each batch, bit for bit as in 14, for joint in float32 (TF32 off,
+     cudnn.deterministic) and bf16, ssdn and n2v in bf16; samples/s of
+     8-step windows graphed against eager in the group beside the
+     one-card graphed chunk (medians of 5 with spreads; graphed must be
+     faster), host launches a step and the idle share of three traced
+     chunks of 3 steps.  The same across two cards where there are
+     two (one process a card), else "not run: one card".
 
 The weights are random, made from a seed.  The detector's 1x1 classifier
 takes the absolute value of its random weights and a scale and bias fitted
@@ -1331,8 +1344,9 @@ def k1_in_training(paths, tmp: str, nms_cuda, radius: int, mesh=None):
     of a CUDA graph after the first chunk's eager warm-up): K1's launches
     in the run, and each validation's `_scores.txt` against K1's plain
     version on the same heatmap.  With a ``mesh`` it is one rank of a
-    data-parallel run (eager chunks): the rank that owns the validation
-    micrograph picks it.  Returns (trainer, launches)."""
+    data-parallel run (its chunks graphed too, the collectives captured):
+    the rank that owns the validation micrograph picks it.  The run's log
+    must report its graphed chunks.  Returns (trainer, launches)."""
     from spr_pick_tpu_torch.params import ConfigValue
     from spr_pick_tpu_torch.train import DenoiserTrainer
 
@@ -1360,9 +1374,16 @@ def k1_in_training(paths, tmp: str, nms_cuda, radius: int, mesh=None):
     t.train()
     launches = nms_cuda.greedy_nms_cuda.launches
     chunk = t._scan.chunk
-    if (chunk.replays < 3) == (mesh is None):
+    if chunk.replays < 3 or chunk.eager_steps != 3:
         raise AssertionError(f"training chunks: {chunk.replays} graph "
                              f"replays, {chunk.eager_steps} eager steps")
+    if mesh is None or mesh.is_main:
+        with open(os.path.join(t.run_dir_path, "log.txt")) as f:
+            logged = re.search(r"graphed chunks: (\d+) steps replayed",
+                               f.read())
+        if not logged or int(logged.group(1)) != chunk.replays:
+            raise AssertionError("the trainer's log does not report its "
+                                 "graphed chunks")
     passes = 3 if mesh is None or mesh.is_main else 0
     if (launches < 1) == bool(passes) or len(maps) != passes:
         raise AssertionError(f"training launched K1 {launches} times over "
@@ -1387,7 +1408,9 @@ def k1_in_training(paths, tmp: str, nms_cuda, radius: int, mesh=None):
             f"pass's _scores.txt equals K1's plain version on its heatmap "
             f"({', '.join(str(len(read_rows(p)) - 1) for _, p in maps)} "
             f"rows); chunks of 3 steps: {chunk.replays} graph replays "
-            f"after {chunk.eager_steps} eager steps")
+            f"after {chunk.eager_steps} eager steps"
+            f"{'' if mesh is None else f' on each of {mesh.size} ranks'}, "
+            f"as its log reports")
     return t, launches
 
 
@@ -2225,7 +2248,7 @@ def ddp_phase(tmp: str, img: np.ndarray, paths, frame: str, Picker,
         try:
             ddp_rank(mesh, img, paths10, tmp)
         finally:
-            mesh_mod.teardown()
+            mesh_mod.teardown(mesh)
     else:
         mesh_mod.launch(ddp_rank, d, "cuda", img, paths10, tmp)
     ranks = []
@@ -2845,11 +2868,13 @@ def graphed_vs_eager(kind: str, dtype: str, t, eager_runs: int = 1):
     return diffs[0], diffs[1:], chunk
 
 
-def chunk_rates(label: str, t, gpu: str) -> dict:
+def chunk_rates(label: str, t, gpu: str, show: bool = True) -> dict:
     """samples/s of GRAPH_K-step windows through the trainer's graphed
     chunk (`_run_chunk`) against GRAPH_K eager `train_step` calls on its
-    data plane (the per-step path), host launches a step, and the idle
-    share over three traced chunks of TRACE_K steps."""
+    data plane (the per-step path; under the trainer's mesh, on this
+    rank's slice, the gradients averaged), host launches a step, and the
+    idle share over three traced chunks of TRACE_K steps; logged where
+    ``show``."""
     from spr_pick_tpu_torch.steps import train_step
 
     t.denoiser.train()
@@ -2873,18 +2898,20 @@ def chunk_rates(label: str, t, gpu: str) -> dict:
         launches = host_launches(fn) / GRAPH_K
         prof = profile_call(lambda: [fn(TRACE_K) for _ in range(3)])
         out[name] = (samples / med, launches)
-        log(f"rate {label} {name}, {GRAPH_K}-step windows at batch "
-            f"{TRAIN_BATCH} bf16 {TRAIN_PATCH}^2: {samples / med:.1f} "
-            f"samples/s (window {text}; samples/s min "
-            f"{samples / max(ms):.1f}, max {samples / min(ms):.1f}); "
-            f"{launches:.1f} host launches a step | {gpu}")
-        log(f"profile {label} {name}, 3 chunks of {TRACE_K} steps: {prof} "
-            f"| {gpu}")
+        if show:
+            log(f"rate {label} {name}, {GRAPH_K}-step windows at batch "
+                f"{TRAIN_BATCH} bf16 {TRAIN_PATCH}^2: {samples / med:.1f} "
+                f"samples/s (window {text}; samples/s min "
+                f"{samples / max(ms):.1f}, max {samples / min(ms):.1f}); "
+                f"{launches:.1f} host launches a step | {gpu}")
+            log(f"profile {label} {name}, 3 chunks of {TRACE_K} steps: "
+                f"{prof} | {gpu}")
     if out["graphed"][1] >= out["eager"][1]:
         raise AssertionError(f"{label}: graphed {out['graphed'][1]} host "
                              f"launches a step, eager {out['eager'][1]}")
-    log(f"rate {label}: graphed / eager samples/s "
-        f"{out['graphed'][0] / out['eager'][0]:.3f} | {gpu}")
+    if show:
+        log(f"rate {label}: graphed / eager samples/s "
+            f"{out['graphed'][0] / out['eager'][0]:.3f} | {gpu}")
     return out
 
 
@@ -2989,6 +3016,227 @@ def graph_phase(t10, runs11, paths10, tmp: str, gpu: str) -> None:
     for algo in ("ssdn", "n2v"):
         chunk_rates(f"dn train {algo}", dn[algo], gpu)
     resume_bitwise(paths10, tmp, gpu)
+    return dn
+
+
+# ---------------------------------------------------------------------------
+# Phase 14e: the sharded chunks graphed under an NCCL mesh
+# ---------------------------------------------------------------------------
+
+MESH_KINDS = ("joint", "ssdn", "n2v")
+
+
+def mesh_graphed_vs_eager(kind: str, dtype: str, t):
+    """Two chunks of GRAPH_K steps of the sharded chunk function
+    (`make_train_scan_sharded` / `make_denoise_scan_sharded`) on the mesh
+    and sharded plane of trainer ``t``, graphed (the first chunk with the
+    eager warm-up, the second all replays), against 2 GRAPH_K eager
+    `train_step` calls, each on this rank's slice (`Mesh.local`) of the
+    global batch that `pipe.gather` sums over the ranks, from the same
+    seeded weights and generator seeds on the same batches.  The eager
+    loss is the chunk's: each rank's mean of its rows, averaged over the
+    ranks.  Returns (graphed vs eager, the graphed chunk)."""
+    from spr_pick_tpu_torch.data.noisy import prepare_batch_torch
+    from spr_pick_tpu_torch.denoiser import Denoiser
+    from spr_pick_tpu_torch.steps import (TrainState,
+                                          make_denoise_scan_sharded,
+                                          make_optimizer,
+                                          make_train_scan_sharded,
+                                          train_step)
+
+    joint = kind == "joint"
+    cfg = train_cfg(dtype) if joint else denoise_cfg(kind, dtype)
+    mesh, pipe = t.mesh, t.patch_pipeline
+    rng = np.random.RandomState(SEED + 74)
+    if joint:
+        rows = [joint_rows(t, GRAPH_K, rng) for _ in range(2)]
+    else:
+        rows = [pipe.sample_coords((GRAPH_K, TRAIN_BATCH)) for _ in range(2)]
+
+    def fresh():
+        den = Denoiser(cfg, mode="joint" if joint else "denoise",
+                       device=mesh.device, mesh=mesh)
+        den.init_variables(SEED)
+        den.train()
+        return (TrainState(0, den, make_optimizer(den)),
+                [torch.Generator(device=mesh.device).manual_seed(SEED + 70 + i)
+                 for i in range(2)])
+
+    state, gens = fresh()
+    if joint:
+        scan = make_train_scan_sharded(state.denoiser, 0.8, 0.01, TRAIN_PATCH,
+                                       mesh)
+    else:
+        scan = make_denoise_scan_sharded(state.denoiser, 0.8, 0.01,
+                                         TRAIN_PATCH, pipe.algorithm,
+                                         pipe.noise_style, mesh)
+    losses = []
+    for r in rows:
+        if joint:
+            m = scan(state, pipe.images_dev, *r, GRAPH_LRS, gens[0])
+        else:
+            m = scan(state, pipe.images_dev, *r, GRAPH_LRS, *gens)
+        losses.append(m["loss"])
+    runs = [(state, gens, losses)]
+    state, gens = fresh()
+    losses = []
+    for r in rows:
+        eager = []
+        for i in range(GRAPH_K):
+            if joint:
+                batch = {"inp": pipe.gather(r[0][i], r[1][i], r[2][i],
+                                            r[3][i]),
+                         "target": torch.from_numpy(r[4][i]).to(mesh.device)}
+            else:
+                batch = prepare_batch_torch(
+                    pipe.gather(r[0][i], r[1][i], r[2][i]), pipe.algorithm,
+                    pipe.noise_style, gens[1])
+            out = train_step(state, mesh.local(batch), float(GRAPH_LRS[i]),
+                             0.8, 0.01, generator=gens[0])
+            eager.append(mesh.global_mean(torch.mean(
+                mesh.local_rows(out["loss"]))).float())
+        losses.append(torch.stack(eager))
+    runs.append((state, gens, losses))
+    torch.cuda.synchronize()
+    chunk = scan.chunk
+    if (chunk.replays, chunk.eager_steps) != (2 * GRAPH_K - 3, 3):
+        raise AssertionError(f"mesh {kind} {dtype}: {chunk.replays} "
+                             f"replays, {chunk.eager_steps} eager steps")
+    for g, e in zip(runs[0][1], runs[1][1]):
+        if not torch.equal(g.get_state(), e.get_state()):
+            raise AssertionError(f"mesh {kind} {dtype}: the graphed run's "
+                                 f"generator state differs from the eager "
+                                 f"run's")
+    return graph_diff(runs[0][0], runs[1][0], runs[0][2], runs[1][2]), chunk
+
+
+def mesh_graph_rank(mesh, run10: str, runs11, tmp: str, gpu: str) -> None:
+    """One rank of 14e: phase 10's joint run and phase 11's ssdn and n2v
+    runs resumed as ranks of ``mesh`` (their stacks sharded), the sharded
+    chunks graphed against eager (bitwise: bf16 for the three, float32
+    joint under cudnn.deterministic with TF32 off), then the rates of the
+    graphed chunk and of eager `train_step` calls; into
+    ``tmp/mesh_graph_rank<r>.pkl``."""
+    import pickle
+
+    from spr_pick_tpu_torch.train import resume_run
+
+    trainers = {}
+    for kind, run in (("joint", run10), ("ssdn", runs11["ssdn"]),
+                      ("n2v", runs11["n2v"])):
+        t = resume_run(run, device=mesh.device, mesh=mesh)
+        t.trainset, t.train_sampler, t.patch_pipeline = t.train_data()
+        if t.patch_pipeline.stack.mesh is not mesh:
+            raise AssertionError(f"{kind}: the stack is not sharded")
+        trainers[kind] = t
+    out = {"diffs": {}, "chunks": {}, "rates": {}}
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        out["diffs"]["joint f32"], chunk = mesh_graphed_vs_eager(
+            "joint", "f32", trainers["joint"])
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+    out["chunks"]["joint f32"] = (chunk.replays, chunk.eager_steps)
+    for kind in MESH_KINDS:
+        out["diffs"][f"{kind} bf16"], chunk = mesh_graphed_vs_eager(
+            kind, "bf16", trainers[kind])
+        out["chunks"][f"{kind} bf16"] = (chunk.replays, chunk.eager_steps)
+    for kind in MESH_KINDS:
+        label = (f"{'train' if kind == 'joint' else 'dn train'} {kind}, "
+                 f"mesh D={mesh.size} (NCCL)")
+        out["rates"][kind] = chunk_rates(label, trainers[kind], gpu,
+                                         show=mesh.is_main)
+    with open(os.path.join(tmp, f"mesh_graph_rank{mesh.rank}.pkl"),
+              "wb") as f:
+        pickle.dump(out, f)
+
+
+def mesh_graph_phase(t10, dn, run10: str, runs11, tmp: str, gpu: str):
+    """14e: the sharded chunks graphed in an NCCL group of one (in this
+    process), and across two cards where there are two (one process a
+    card): graphed against eager bit for bit, the samples/s of graphed and
+    eager steps beside the one-card graphed chunk's, host launches a step
+    and the traced idle share.  ``t10``, ``dn``: the one-card trainers of
+    phases 10 and 14."""
+    import pickle
+
+    from spr_pick_tpu_torch.parallel import mesh as mesh_mod
+
+    def one_card(t):
+        t.denoiser.train()
+        if t._scan is None:
+            t._scan = t._build_scan()
+        ms = host_ms(lambda: t._run_chunk(t.iteration, GRAPH_K,
+                                          TRAIN_BATCH))
+        return summary(ms), 1e3 * GRAPH_K * TRAIN_BATCH / statistics.median(
+            ms), ms
+
+    single = {"joint": one_card(t10), "ssdn": one_card(dn["ssdn"]),
+              "n2v": one_card(dn["n2v"])}
+    what = (f"2 chunks of {GRAPH_K} steps at batch {TRAIN_BATCH} "
+            f"{TRAIN_PATCH}^2, full width")
+    for d in (1, 2):
+        if d > torch.cuda.device_count():
+            log(f"mesh graphed chunks at D={d}: not run: one card")
+            continue
+        t0 = time.perf_counter()
+        if d == 1:
+            mesh = mesh_mod.init(0, 1, "cuda",
+                                 f"tcp://127.0.0.1:{mesh_mod.free_port()}")
+            try:
+                mesh_graph_rank(mesh, run10, runs11, tmp, gpu)
+            finally:
+                mesh_mod.teardown(mesh)
+        else:
+            mesh_mod.launch(mesh_graph_rank, d, "cuda", run10, runs11, tmp,
+                            gpu)
+        ranks = []
+        for r in range(d):
+            with open(os.path.join(tmp, f"mesh_graph_rank{r}.pkl"),
+                      "rb") as f:
+                ranks.append(pickle.load(f))
+        for r, res in enumerate(ranks):
+            for case, diff in res["diffs"].items():
+                replays, eager = res["chunks"][case]
+                if not diff["bitwise"]:
+                    raise AssertionError(f"mesh D={d} rank {r} {case}: "
+                                         f"graphed vs eager "
+                                         f"{diff_text(diff)}")
+                if r == 0:
+                    det = (" (TF32 off, cudnn.deterministic)"
+                           if "f32" in case else "")
+                    log(f"mesh graphed vs eager sharded chunk, D={d} "
+                        f"(NCCL), {case}{det}, {what}: {diff_text(diff)}; "
+                        f"{replays} replays after {eager} eager warm-up "
+                        f"steps, against {2 * GRAPH_K} eager train_step "
+                        f"calls; "
+                        f"tolerance: bitwise; generator states equal | "
+                        f"{gpu}")
+        for kind in MESH_KINDS:
+            rates = ranks[0]["rates"][kind]
+            (text, _), rate1, ms = single[kind]
+            graphed, eager = rates["graphed"][0], rates["eager"][0]
+            if not graphed > eager:
+                raise AssertionError(f"mesh D={d} {kind}: graphed "
+                                     f"{graphed:.1f} samples/s, eager "
+                                     f"{eager:.1f}")
+            log(f"rate mesh {kind} bf16 batch {TRAIN_BATCH} "
+                f"{TRAIN_PATCH}^2, {GRAPH_K}-step windows: graphed "
+                f"{graphed:.1f} samples/s at D={d} (NCCL, stack sharded), "
+                f"eager {eager:.1f} at D={d}, one-card graphed chunk "
+                f"{rate1:.1f} (window {text}; samples/s min "
+                f"{1e3 * GRAPH_K * TRAIN_BATCH / max(ms):.1f}, max "
+                f"{1e3 * GRAPH_K * TRAIN_BATCH / min(ms):.1f}); graphed / "
+                f"eager {graphed / eager:.3f}, graphed D={d} / one card "
+                f"{graphed / rate1:.3f}; host launches a step graphed "
+                f"{rates['graphed'][1]:.1f}, eager {rates['eager'][1]:.1f} "
+                f"| {gpu}")
+        log(f"mesh graphed chunks at D={d} took "
+            f"{time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -3247,10 +3495,13 @@ def main() -> int:
         tools_phase(paths10, eval8, paths, tmp)
         log(f"phase 13 took {time.perf_counter() - t0:.1f} s")
 
-        # 14. Graphed training chunks.
+        # 14. Graphed training chunks; 14e, under an NCCL mesh.
         t0 = time.perf_counter()
-        graph_phase(trainer, runs11, paths10, tmp, gpu)
+        dn14 = graph_phase(trainer, runs11, paths10, tmp, gpu)
         log(f"phase 14 took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        mesh_graph_phase(trainer, dn14, run10, runs11, tmp, gpu)
+        log(f"phase 14e took {time.perf_counter() - t0:.1f} s")
 
     h, w = shape
     bound_ms, bound_by = k1_bound(h, w, k, count, radius)

@@ -282,7 +282,7 @@ def run_train(args: Dict):
                                  f"{m.size} ranks")
             _train(args, m)
         finally:
-            mesh.teardown()
+            mesh.teardown(m)
         return
     size = _mesh_size(args)
     if size <= 1:
@@ -347,7 +347,7 @@ def run_eval(args: Dict):
     try:
         _eval(args, m)
     finally:
-        mesh.teardown()
+        mesh.teardown(m)
 
 
 def _eval(args: Dict, mesh):

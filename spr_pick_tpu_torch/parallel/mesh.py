@@ -22,6 +22,16 @@ global gradient, as its local-mean terms do, so the average is the global
 gradient.  A failing init, a missing card for a rank or a failing
 collective raises: a run never falls back to one device.
 
+The step's collectives can be captured in a CUDA graph on NCCL
+(`utils/cuda_graph.py`): what they reduce (the gradient average's flat
+buffer included) is allocated inside the capture, from the graph's own
+memory pool, so a replay finds it where the capture put it, and none
+reads a value on the host.  Every rank issues the same sequence of them
+at every step, which is what lets each rank replay its graph against the
+others'.  `any`, `broadcast_` and `broadcast_object` read or write the
+host and run between replays.  The mesh holds the graphs that captured
+its collectives (`hold_graph`) until `teardown` releases them.
+
 The training micrograph stack is sharded, not replicated (JAX
 `parallel/mesh.py:shard_stack`, `steps.py:_sharded_patch_gather`): rank r
 holds rows ``[r n_l, (r+1) n_l)`` of the stack zero-padded to ``D n_l``
@@ -41,7 +51,7 @@ import logging
 import os
 import socket
 from datetime import timedelta
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +74,8 @@ class Mesh:
     size: int
     rank: int
     device: torch.device
+    _graphs: List = dataclasses.field(default_factory=list, init=False,
+                                      repr=False, compare=False)
 
     @property
     def is_main(self) -> bool:
@@ -118,6 +130,11 @@ class Mesh:
             p.grad.copy_(flat[offset: offset + n].view_as(p.grad))
             offset += n
 
+    def hold_graph(self, graph) -> None:
+        """Keep ``graph``, a CUDA graph that captured this group's
+        collectives, until `teardown` releases it."""
+        self._graphs.append(graph)
+
     @torch.no_grad()
     def broadcast_(self, tensors: Sequence[torch.Tensor]) -> None:
         """Overwrite ``tensors`` with rank 0's."""
@@ -138,6 +155,11 @@ class Mesh:
 
 
 class _AllReduceSum(torch.autograd.Function):
+    """Sum over the ranks whose backward sums the incoming gradient.  The
+    backward runs on the autograd engine's device thread, on the stream of
+    the forward's all-reduce, so under a CUDA graph's capture it is
+    captured with the rest of the step."""
+
     @staticmethod
     def forward(ctx, t):
         out = t.clone()
@@ -260,7 +282,16 @@ def init(rank: int, size: int, device, init_method: str,
     return Mesh(size=size, rank=rank, device=dev)
 
 
-def teardown() -> None:
+def teardown(mesh: Mesh) -> None:
+    """Leave the process group, releasing first the CUDA graphs that
+    captured ``mesh``'s collectives (`Mesh.hold_graph`): NCCL may wait
+    for a live graph that holds its collectives before it destroys the
+    communicator."""
+    if mesh._graphs:
+        torch.cuda.synchronize(mesh.device)
+        for graph in mesh._graphs:
+            graph.reset()
+        mesh._graphs.clear()
     if dist.is_initialized():
         dist.destroy_process_group()
 
@@ -289,7 +320,7 @@ def _worker(rank: int, fn: Callable, size: int, device, init_method: str,
     try:
         fn(mesh, *args)
     finally:
-        teardown()
+        teardown(mesh)
 
 
 def launch(fn: Callable, size: int, device, *args) -> None:

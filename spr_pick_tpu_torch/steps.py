@@ -17,7 +17,8 @@ label arrays and the K learning rates.  The port's chunk functions take the
 same arrays, ship them to the device in one copy (`pack_rows`) and run the
 same K steps: on a CUDA device each step is one replay of a CUDA graph of
 the step (`utils/cuda_graph.py`: one graph launch instead of thousands of
-kernel launches a step); on the CPU, and under a mesh, the same step runs
+kernel launches a step), under an NCCL mesh with the step's collectives
+captured in it; on the CPU (gloo ranks included) the same step runs
 eagerly, K times.  Everything a step reads or writes lives on the device
 (Adam's count, bias corrections and learning rate included, and the
 gradients, zeroed in place so their addresses stay put), which is what
@@ -242,8 +243,8 @@ def _fields(row: torch.Tensor, *layout):
 
 class _Chunk:
     """K training steps from packed rows: one replay a step of a CUDA graph
-    of the step on a CUDA device (`utils/cuda_graph.py`), the step itself
-    K times on the CPU and under a mesh.
+    of the step on a CUDA device (`utils/cuda_graph.py`; under an NCCL mesh
+    every rank captures the same step), the step itself K times on the CPU.
 
     ``step(state, images, row, generators, draws)`` runs one update from a
     packed row and returns its metrics (means over the batch).  The graph
@@ -281,7 +282,7 @@ class _Chunk:
             dev_rows = host.pin_memory().to(images.device, non_blocking=True)
         else:
             dev_rows = host.to(images.device)
-        if images.device.type == "cuda" and self.mesh is None:
+        if images.device.type == "cuda":
             if draws is not None:
                 raise ValueError("explicit draws: the eager chunk (CPU) only")
             out = self._graphed(state, images, generators).run(dev_rows)
@@ -303,7 +304,7 @@ class _Chunk:
                 lambda row: self._vector(self.step(state, images, row,
                                                    generators, None)),
                 generators=[g for g in generators if g is not None],
-                params=state.opt.params)
+                params=state.opt.params, mesh=self.mesh)
         elif any(a is not b for a, b in zip(bound, self._bound)):
             raise ValueError("a graphed chunk replays on the state, stack "
                              "and generators it was captured with")
@@ -370,8 +371,9 @@ def make_train_scan_sharded(denoiser: Denoiser, alpha: float, tau: float,
     (JAX `make_train_scan_sharded`): each rank cuts the crops of the images
     it holds, the ranks sum them (`parallel/mesh.py:owned_crops`), each
     keeps its rows of the batch, and the gradients are averaged before
-    Adam.  ``images`` is this rank's shard (`shard_stack`).  It runs
-    eagerly: its collectives are not captured in a graph."""
+    Adam.  ``images`` is this rank's shard (`shard_stack`).  On cards
+    (NCCL) its steps are replays of one CUDA graph of the step, the
+    collectives captured in it; on gloo ranks they run eagerly."""
     del denoiser
     return _joint_chunk(alpha, tau, crop, mesh)
 
@@ -434,7 +436,8 @@ def make_denoise_scan_sharded(denoiser: Denoiser, alpha: float, tau: float,
                               noise_input: bool = False):
     """`make_denoise_scan` with the stack sharded over the ranks of
     ``mesh`` (JAX `make_denoise_scan_sharded`; see
-    `make_train_scan_sharded`).  It runs eagerly."""
+    `make_train_scan_sharded`): replays of one CUDA graph on cards, eager
+    on gloo ranks."""
     del denoiser
     return _denoise_chunk(alpha, tau, patch, algorithm, noise_style,
                           noise_input, mesh)

@@ -19,10 +19,10 @@ On a device plane a chunk of K > 1 steps (any K under a mesh) is one call
 of `steps.make_train_scan` or `make_denoise_scan` (their sharded forms
 under a mesh): the host draws the K batches' indices, labels and flips and
 the K learning rates, and on a CUDA device each step is a replay of one
-CUDA graph of the step (`utils/cuda_graph.py`), on the CPU and under a
-mesh the step itself.  The host planes, and a single step between two
-boundaries, take `steps.train_step` once a step (`_can_scan`,
-train.py:793-810).
+CUDA graph of the step (`utils/cuda_graph.py`; under an NCCL mesh its
+collectives are captured too), on the CPU the step itself.  The host
+planes, and a single step between two boundaries, take `steps.train_step`
+once a step (`_can_scan`, train.py:793-810).
 
 Intervals fire on crossings of their multiples, not exact hits
 (`interval_due`), so a batch that does not divide an interval still fires
@@ -51,11 +51,12 @@ train.py:201-221): each rank runs this loop on its own card, holds its
 share of the device plane's image stack (`_shard`; the budget is a card's
 times the ranks), draws the same global batch, whose crops the ranks
 gather from the shards that hold them, keeps its rows (`next_batch`), and
-steps in lockstep with the others (`steps.train_step` averages the
-gradients); the ranks start from rank 0's variables, stop together on a
-signal to any of them, validate on their shares of the micrographs, and
-rank 0 alone writes snapshots, `.wt`, scalars and the log.  The data state
-is the global one, so a run resumes at any number of ranks.
+steps in lockstep with the others (the step averages the gradients; on
+cards every rank replays its graph of the step, the collectives in it);
+the ranks start from rank 0's variables, stop together on a signal to any
+of them, validate on their shares of the micrographs, and rank 0 alone
+writes snapshots, `.wt`, scalars and the log.  The data state is the
+global one, so a run resumes at any number of ranks.
 """
 
 from __future__ import annotations
@@ -565,9 +566,12 @@ class DenoiserTrainer(EvaluatorBase):
     def _log_chunks(self) -> None:
         chunk = getattr(self._scan, "chunk", None)
         if chunk is not None and (chunk.replays or chunk.eager_steps):
+            ranks = ("" if self.mesh is None else
+                     f", on each of {self.mesh.size} ranks (NCCL "
+                     "collectives captured)")
             logger.info("graphed chunks: %d steps replayed from a CUDA "
-                        "graph after %d eager warm-up steps", chunk.replays,
-                        chunk.eager_steps)
+                        "graph after %d eager warm-up steps%s",
+                        chunk.replays, chunk.eager_steps, ranks)
 
     def _flush_metrics(self, pending, batch_size: int):
         """Copy the buffered device metrics, ``(metrics, steps)`` pairs of

@@ -1,10 +1,12 @@
 """One training step captured in a CUDA graph and replayed once a step.
 
 The port's counterpart of the JAX package's fused K-step programs
-(`spr_pick_tpu/steps.py:make_train_scan`, `make_denoise_scan`), which XLA
-compiles into one program so that the host dispatches nothing a step.  An
-eager PyTorch step launches every kernel from Python (2624 a joint step at
-the full width); a replay of a captured step is one graph launch.
+(`spr_pick_tpu/steps.py:make_train_scan`, `make_denoise_scan` and their
+sharded forms `make_train_scan_sharded`, `make_denoise_scan_sharded`),
+which XLA compiles into one program, collectives included, so that the
+host dispatches nothing a step.  An eager PyTorch step launches every
+kernel from Python (2624 a joint step at the full width); a replay of a
+captured step is one graph launch.
 
 `GraphedSteps.run` takes a chunk's (K, R) rows of packed step inputs on the
 device (`steps.pack_rows`) and runs the K steps:
@@ -26,6 +28,19 @@ eager step would have: a replay advances a generator's offset by what the
 step consumes, and its state read between replays is the state an eager
 run would have.  A capture or replay that fails raises; nothing falls back
 to the eager loop.
+
+Under an NCCL mesh (`parallel/mesh.py`) the step's collectives (the
+sharded crops' sum, BatchNorm's global moments, the losses' sums, the
+gradient average, the metrics) are captured with it: each rank warms up
+and captures at the same step of the same chunk, its replays launch the
+same collectives in the same order as every other rank's, and eager
+collectives between replays (validation, the stop flag) run on the same
+communicator after them, in stream order.  After the capture the ranks
+agree that every rank captured (one eager all-reduce) before any of them
+replays: a rank whose capture failed raises, and so does every other
+rank, instead of replaying collectives that no peer will join.  The mesh
+holds the graph (`Mesh.hold_graph`), and `parallel/mesh.py:teardown`
+releases it before it leaves the process group.
 """
 
 from __future__ import annotations
@@ -41,15 +56,17 @@ class GraphedSteps:
     """``step(row) -> metrics`` (a (M,) float32 tensor), captured once and
     replayed for each row.  ``params`` are the optimizer's parameters,
     whose gradients the graph writes in place: they must stay the tensors
-    the graph was captured with.  `replays` and `eager_steps` count how the
-    steps ran."""
+    the graph was captured with.  ``mesh``: the ranks that capture the
+    same step (None on one card).  `replays` and `eager_steps` count how
+    the steps ran."""
 
     def __init__(self, step: Callable[[torch.Tensor], torch.Tensor],
                  generators: Sequence[torch.Generator],
-                 params: Sequence[torch.Tensor]):
+                 params: Sequence[torch.Tensor], mesh=None):
         self.step = step
         self.generators = list(generators)
         self.params = list(params)
+        self.mesh = mesh
         self.graph = None
         self.row = None
         self.out = None
@@ -100,8 +117,21 @@ class GraphedSteps:
         for g in self.generators:
             graph.register_generator_state(g)
         self.row = torch.empty_like(row)
-        with torch.cuda.graph(graph):
-            self.out = self.step(self.row)
+        error = None
+        try:
+            with torch.cuda.graph(graph):
+                self.out = self.step(self.row)
+        except Exception as exc:  # re-raised below, after the ranks agree
+            error = exc
+        if self.mesh is not None and self.mesh.any(error is not None) \
+                and error is None:
+            raise RuntimeError(
+                f"rank {self.mesh.rank}: the training step's CUDA graph "
+                "capture failed on another rank of the mesh")
+        if error is not None:
+            raise error
+        if self.mesh is not None:
+            self.mesh.hold_graph(graph)
         self.graph = graph
         self.grads = [p.grad for p in self.params]
 

@@ -276,7 +276,7 @@ def child(rank, size, port, out, d):
     try:
         result = rank_work(mesh, d)
     finally:
-        mesh_mod.teardown()
+        mesh_mod.teardown(mesh)
     with open(out, "wb") as f:
         pickle.dump(result, f)
 
