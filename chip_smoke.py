@@ -83,6 +83,13 @@ script then exits nonzero and prints no result):
      timings: steps/s and samples/s, a step's data plane, forward +
      backward and Adam (CUDA events), the validation pass, and the idle
      share of three traced steps;
+ 10h. the host joint plane: ``train start`` (its function, in this
+     process) under ``SPR_HOST_JOINT_DATA=1`` for 8 steps at the defaults on
+     the same set, validating at 0 and at the end: the log names
+     `HostPatchPipeline` and reports no graphed chunk, the trainer builds no
+     chunk function, K1 launches in both validations and each
+     `_scores.txt` equals its plain version; the host plane's eager
+     samples/s.  The variable is restored afterwards, whatever happens;
  11. denoise-only training: the device data plane on the card against
      its CPU run for the same coordinates and draws (crops, an n2n
      reference of a range style, UPS input and mask: equal); one float32
@@ -135,7 +142,18 @@ script then exits nonzero and prints no result):
      all five coordinate writers and back, and precision/recall/F1 against
      the planted particles and bf16 against float32 outside the band are
      printed (findings, not gates; at F1 = 1.0 the bf16-classifier fault
-     is run against both rules); then, where pandas and PIL cannot be
+     is run against both rules); then a long run of the trainer (LONG_STEPS
+     graphed steps at the defaults on phase 10's set, chunks of LONG_CHUNK
+     steps, validating LONG_PASSES + 1 times through K1, each
+     `_scores.txt` equal to its plain version, F1 and loss by step) and
+     gates on its weights: F1 against the planted particles at least
+     MIN_F1 in float32 and bf16, bf16 against float32 at band F1 1.0 around
+     the star threshold, the classifier's logits a float32 conv of its
+     features (and not under the planted bf16-classifier fault, which no
+     pick rule sees on these weights: printed), and tiled against direct
+     at halo 96 on a planted 2048^2 micrograph with the A head zeroed, band
+     F1 1.0 around 0.13 and 0.04 (with the noise drawn, beside a reseeded
+     direct pick: printed); then, where pandas and PIL cannot be
      imported, `tools.generate_train_files` on phase 10's set (its
      manifests equal phase 10's and train one iteration), `tools.
      convert_to_star` on phase 8's `_scores.txt` equal to `eval
@@ -186,6 +204,8 @@ the kernels JSON line, and the result line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
+import faulthandler
+import gc
 import json
 import os
 import re
@@ -211,13 +231,14 @@ THRESHOLD = 0.02     # Picker's heatmap floor
 STAR_THRESHOLD = 0.13
 MARGIN = 0.02
 COORD_TOL = 3        # px of peak jitter allowed between bf16 and float32
-# Share of confident picks that must match across dtypes.  With trained
-# weights tests/test_bf16_parity.py asks for all of them; with random
-# weights the U-Net output is a small residue of cancelling activations, so
-# bf16 rounding moves a large share of its spread and some picks move with
-# it.  The floor is tuned, not derived: set below the 0.897 that this
-# calibration reads, and checked against planted faults (the run prints
-# every matched fraction).
+# Share of confident picks that must match across dtypes on random weights
+# (phases 4 and 13a, a smoke check).  With random weights the U-Net output
+# is a small residue of cancelling activations, so bf16 rounding moves a
+# large share of its spread and some picks move with it.  The floor is
+# tuned, not derived: set below the 0.897 that this calibration reads, and
+# checked against planted faults (the run prints every matched fraction).
+# The gate on trained weights is 13c's: tests/test_bf16_parity.py's band
+# rule at F1 1.0 on the long run's weights.
 MIN_MATCHED = 0.8
 RUNS = 5
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
@@ -1338,6 +1359,39 @@ def training_commands(paths, tmp: str, Picker) -> dict:
     return run
 
 
+def capturing(write_scores, maps: list):
+    """``write_scores`` (bound, or a trainer class's function) that also
+    keeps each validation's heatmap and `_scores.txt` path in ``maps``."""
+
+    def capture(*args, **kw):
+        write_scores(*args, **kw)
+        heatmap, _, out_path = args[-3:]
+        maps.append((heatmap.clone(), out_path))
+
+    return capture
+
+
+def scores_are_plain(maps, nms_cuda, radius: int) -> str:
+    """Each validation's `_scores.txt` rows against K1's plain version on
+    the heatmap it was written from (the 30 px border filter, the
+    reference's swapped columns); returns the row counts."""
+    for hm, path in maps:
+        s, c_, n = nms_cuda.greedy_nms_plain(hm[None], radius, THRESHOLD,
+                                             BIG_CAP)
+        n = int(n[0])
+        s, c_ = s[0, :n].cpu().numpy(), c_[0, :n].cpu().numpy()
+        h, w = hm.shape
+        keep = ((30 < c_[:, 1]) & (c_[:, 1] < h - 30)
+                & (30 < c_[:, 0]) & (c_[:, 0] < w - 30))
+        want = [[str(c_[i, 1]), str(c_[i, 0]), s[i]]
+                for i in np.flatnonzero(keep)]
+        got = [[r[1], r[2], np.float32(r[3])] for r in read_rows(path)[1:]]
+        if got != want or not got:
+            raise AssertionError(f"validation picks {path}: {len(got)} rows, "
+                                 f"K1's plain version {len(want)}")
+    return ", ".join(str(len(read_rows(p)) - 1) for _, p in maps)
+
+
 def k1_in_training(paths, tmp: str, nms_cuda, radius: int, mesh=None):
     """An in-process DenoiserTrainer on the card, bf16 at the defaults, 96
     iterations with a validation pass every 48 (chunks of 3 steps, replays
@@ -1362,14 +1416,7 @@ def k1_in_training(paths, tmp: str, nms_cuda, radius: int, mesh=None):
     t.set_test_data(paths["val_images"])
     t.set_test_label(paths["val_coords"])
     maps = []
-    write_scores = t.write_scores
-
-    def capture(heatmap, name, out_path, picks=None, suppressed=None):
-        write_scores(heatmap, name, out_path, picks=picks,
-                     suppressed=suppressed)
-        maps.append((heatmap.clone(), out_path))
-
-    t.write_scores = capture
+    t.write_scores = capturing(t.write_scores, maps)
     nms_cuda.greedy_nms_cuda.launches = 0
     t.train()
     launches = nms_cuda.greedy_nms_cuda.launches
@@ -1388,26 +1435,12 @@ def k1_in_training(paths, tmp: str, nms_cuda, radius: int, mesh=None):
     if (launches < 1) == bool(passes) or len(maps) != passes:
         raise AssertionError(f"training launched K1 {launches} times over "
                              f"{len(maps)} validations")
-    for hm, path in maps:
-        s, c_, n = nms_cuda.greedy_nms_plain(hm[None], radius, THRESHOLD,
-                                             BIG_CAP)
-        n = int(n[0])
-        s, c_ = s[0, :n].cpu().numpy(), c_[0, :n].cpu().numpy()
-        h, w = hm.shape
-        keep = ((30 < c_[:, 1]) & (c_[:, 1] < h - 30)
-                & (30 < c_[:, 0]) & (c_[:, 0] < w - 30))
-        want = [[str(c_[i, 1]), str(c_[i, 0]), s[i]]
-                for i in np.flatnonzero(keep)]
-        got = [[r[1], r[2], np.float32(r[3])] for r in read_rows(path)[1:]]
-        if got != want or not got:
-            raise AssertionError(f"validation picks {path}: {len(got)} rows, "
-                                 f"K1's plain version {len(want)}")
+    rows = scores_are_plain(maps, nms_cuda, radius)
     if passes:
         log(f"k1 in training{'' if mesh is None else ' (data parallel)'}: "
             f"{launches} launches over {len(maps)} validation passes; each "
             f"pass's _scores.txt equals K1's plain version on its heatmap "
-            f"({', '.join(str(len(read_rows(p)) - 1) for _, p in maps)} "
-            f"rows); chunks of 3 steps: {chunk.replays} graph replays "
+            f"({rows} rows); chunks of 3 steps: {chunk.replays} graph replays "
             f"after {chunk.eager_steps} eager steps"
             f"{'' if mesh is None else f' on each of {mesh.size} ranks'}, "
             f"as its log reports")
@@ -1460,6 +1493,103 @@ def time_training(t, gpu: str) -> None:
         f"{text} | {gpu}")
     # Three steps: the profiler's bookkeeping of ten (26k kernels) took 8 s.
     log(f"profile train 3 steps: {profile_call(lambda: window(3))} | {gpu}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 10h: the host joint plane (SPR_HOST_JOINT_DATA=1)
+# ---------------------------------------------------------------------------
+
+HOST_ITERS = 128     # 10h: 8 eager steps at batch 16
+
+
+def host_plane_phase(paths, tmp: str, nms_cuda, radius: int,
+                     gpu: str) -> int:
+    """`train start` (the command's function, in this process) at the
+    defaults on phase 10's set under ``SPR_HOST_JOINT_DATA=1``, with
+    validation passes at 0 and at the end: the log names the host plane
+    and reports no graphed chunk, K1 launches in the validations and each
+    `_scores.txt` equals its plain version; then the host plane's eager
+    samples/s.  The variable and the trainer's `write_scores` are restored
+    whatever happens.  Returns K1's launches in the run."""
+    from spr_pick_tpu_torch.cli import cli
+    from spr_pick_tpu_torch.data.micrograph import HostPatchPipeline
+    from spr_pick_tpu_torch.steps import train_step
+    from spr_pick_tpu_torch.train import DenoiserTrainer, resume_run
+
+    runs = os.path.join(tmp, "host_plane_runs")
+    maps = []
+    own = DenoiserTrainer.__dict__.get("write_scores")
+    write_scores = DenoiserTrainer.write_scores
+    saved = os.environ.get("SPR_HOST_JOINT_DATA")
+    os.environ["SPR_HOST_JOINT_DATA"] = "1"
+    DenoiserTrainer.write_scores = capturing(write_scores, maps)
+    try:
+        nms_cuda.greedy_nms_cuda.launches = 0
+        t0 = time.perf_counter()
+        cli.start([
+            "train", "start", "-a", "ssdn", "-n", "gauss", "--noise_value",
+            "const", "-t", paths["train_images"], "-l",
+            paths["train_coords"], "-v", paths["val_images"], "-vl",
+            paths["val_coords"], "--alpha", "0.8", "--tau", "0.01",
+            "--iterations", str(HOST_ITERS), "--eval_interval",
+            str(HOST_ITERS), "--print_interval", str(HOST_ITERS // 2),
+            "--checkpoint_interval", str(HOST_ITERS), "--runs_dir", runs,
+            "--mesh", "1"])
+        secs = time.perf_counter() - t0
+        launches = nms_cuda.greedy_nms_cuda.launches
+        (name,) = os.listdir(runs)
+        run = os.path.join(runs, name)
+        t = resume_run(run, iteration=HOST_ITERS, device="cuda")
+        t.trainset, t.train_sampler, t.patch_pipeline = t.train_data()
+    finally:
+        if own is None:
+            del DenoiserTrainer.write_scores
+        else:
+            DenoiserTrainer.write_scores = own
+        if saved is None:
+            del os.environ["SPR_HOST_JOINT_DATA"]
+        else:
+            os.environ["SPR_HOST_JOINT_DATA"] = saved
+    with open(os.path.join(run, "log.txt")) as f:
+        text = f.read()
+    graphed = re.search(r"graphed chunks: (\d+) steps replayed", text)
+    if "joint data plane: HostPatchPipeline" not in text or (
+            graphed and int(graphed.group(1)) != 0):
+        raise AssertionError("train start under SPR_HOST_JOINT_DATA=1: the "
+                             "log does not name the host plane, or reports "
+                             "graphed chunks")
+    if not isinstance(t.patch_pipeline, HostPatchPipeline) or \
+            t._build_scan() is not None:
+        raise AssertionError("the resumed trainer under SPR_HOST_JOINT_DATA=1"
+                             f" took {type(t.patch_pipeline).__name__}")
+    final = f"final-ssdn-gauss-iter{HOST_ITERS}-0.8-0.01-joint.wt"
+    if not os.path.isfile(os.path.join(run, final)):
+        raise AssertionError(f"train start on the host plane: no {final}")
+    if launches < 1 or len(maps) != 2:
+        raise AssertionError(f"the host-plane run launched K1 {launches} "
+                             f"times over {len(maps)} validations")
+    rows = scores_are_plain(maps, nms_cuda, radius)
+    log(f"host joint plane (SPR_HOST_JOINT_DATA=1): train start, "
+        f"{HOST_ITERS // TRAIN_BATCH} eager steps at batch {TRAIN_BATCH} bf16"
+        f" {TRAIN_PATCH}^2 in {secs:.1f} s (in process); the log names "
+        f"HostPatchPipeline and no graphed chunk; K1 {launches} launches over"
+        f" {len(maps)} validation passes, each _scores.txt equal to K1's "
+        f"plain version ({rows} rows)")
+
+    t.denoiser.train()
+    steps = 5
+
+    def window():
+        for _ in range(steps):
+            train_step(t.train_state, t.next_batch(TRAIN_BATCH), 1e-4, 0.8,
+                       0.01, generator=t._train_generator)
+
+    text, med = summary(host_ms(window))
+    log(f"timing train host plane, {steps} eager steps at batch "
+        f"{TRAIN_BATCH} bf16 {TRAIN_PATCH}^2: {text} | {gpu}")
+    log(f"rate train host plane (eager): "
+        f"{1e3 * steps * TRAIN_BATCH / med:.1f} samples/s | {gpu}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2325,6 +2455,14 @@ STITCH_ATOL = 1e-4
 # over the output's largest magnitude (cuDNN against oneDNN accumulation).
 VARIANT_RTOL = 1e-4
 F1_RADIUS = 15      # px: precision_recall_f1 against the planted particles
+LONG_STEPS = 3000   # 13c's long run: graphed steps at batch 16
+LONG_CHUNK = 250    # its steps a chunk (the print interval)
+LONG_PASSES = 4     # its validation passes after the one at 0 (F1 curve)
+# F1 of the long-run weights' picks (above the Picker's floor) against the
+# planted particles of val44.mrc: 0.9903 in float32 and bf16 on the H100
+# (both reads of the long run, which is bit for bit the same run to run);
+# the floor leaves 0.09 of it, about 5 of the 52 particles.
+MIN_F1 = 0.9
 BOX_SIZE = 40       # even, so a box's centre is its pick
 
 
@@ -2486,26 +2624,29 @@ def variants_card_vs_cpu() -> None:
     tf32(True)
 
 
-def band_f1(a, b, shape):
-    """(F1, message): a's confident picks (star threshold + margin) matched
-    by Hungarian assignment within COORD_TOL px to b's picks above the star
-    threshold - margin, and b's to a's; the F1 of the two matched shares."""
+def band_f1(a, b, shape, cut=STAR_THRESHOLD):
+    """(F1, message): a's confident picks (``cut`` + margin; the star
+    threshold by default) matched by Hungarian assignment within COORD_TOL
+    px to b's picks above ``cut`` - margin, and b's to a's; the F1 of the
+    two matched shares."""
     from spr_pick_tpu_torch.ops.algorithms import match_coordinates
 
     sa, ca = star_picks(*a, shape)
     sb, cb = star_picks(*b, shape)
-    shares = []
+    shares, counts = [], []
     for s1, c1, s2, c2 in ((sa, ca, sb, cb), (sb, cb, sa, ca)):
-        strong = c1[s1 >= STAR_THRESHOLD + MARGIN].astype(float)
-        loose = c2[s2 >= STAR_THRESHOLD - MARGIN].astype(float)
+        strong = c1[s1 >= cut + MARGIN].astype(float)
+        loose = c2[s2 >= cut - MARGIN].astype(float)
         if len(strong) == 0:
             raise AssertionError("no confident picks: the comparison is inert")
         assignment, _ = match_coordinates(loose, strong, COORD_TOL)
         shares.append(float(assignment.sum()) / len(strong))
+        counts.append(len(strong))
     p, r = shares
     f1 = 2 * p * r / max(p + r, 1e-12)
-    return f1, (f"outside the +-{MARGIN} band: {p:.4f} and {r:.4f} of the "
-                f"confident picks matched within {COORD_TOL} px, F1 {f1:.4f}")
+    return f1, (f"outside the +-{MARGIN} band around {cut}: {p:.4f} of "
+                f"{counts[0]} and {r:.4f} of {counts[1]} confident picks "
+                f"matched within {COORD_TOL} px, F1 {f1:.4f}")
 
 
 def quality(picks, truth, label: str) -> str:
@@ -2574,8 +2715,7 @@ def trained_phase(Picker, run: str, paths10, tmp: str) -> None:
     recall and F1 against the planted particles, and bf16 against float32
     outside the band (findings, not gates)."""
     val = os.path.join(os.path.dirname(paths10["val_images"]), "val44.mrc")
-    truth = np.array([[float(r[1]), float(r[2])]
-                      for r in read_rows(paths10["val_coords"])[1:]])
+    truth = truth_of(paths10)
     (final,) = [f for f in os.listdir(run) if f.startswith("final-")]
     tf32(False)
     f32 = Picker(f32_weights(run, tmp), border=0).pick_arrays(val)
@@ -2600,6 +2740,249 @@ def trained_phase(Picker, run: str, paths10, tmp: str) -> None:
             f"({'caught' if f1_bad < 1.0 else 'not caught'} by F1 = 1.0); "
             f"the 0.8 floor: {floor_msg} "
             f"({'caught' if frac_bad < MIN_MATCHED else 'not caught'})")
+
+
+def truth_of(paths10) -> np.ndarray:
+    """The validation micrograph's planted particles as (x, y)."""
+    return np.array([[float(r[1]), float(r[2])]
+                     for r in read_rows(paths10["val_coords"])[1:]])
+
+
+def pick_f1(scores, coords, truth, threshold: float) -> float:
+    """F1 against ``truth`` of the picks scoring above ``threshold``."""
+    from spr_pick_tpu_torch.ops.algorithms import precision_recall_f1
+
+    keep = coords[scores > threshold].astype(float)
+    return precision_recall_f1(truth, keep, F1_RADIUS)[2]
+
+
+def long_training(paths10, tmp: str, nms_cuda, radius: int, gpu: str):
+    """13c's long run: an in-process `DenoiserTrainer` at the defaults
+    (bf16, batch 16, 64^2, alpha 0.8, tau 0.01, the cfg's learning-rate
+    schedule) on phase 10's planted set for LONG_STEPS steps, chunks of
+    LONG_CHUNK steps replayed from a CUDA graph, validating at 0 and
+    LONG_PASSES times after.  Each pass's `_scores.txt` must equal K1's
+    plain version; its F1 against the planted particles is the learning
+    curve.  Returns (run dir, K1's launches)."""
+    from spr_pick_tpu_torch.params import ConfigValue
+    from spr_pick_tpu_torch.train import DenoiserTrainer
+
+    iters = LONG_STEPS * TRAIN_BATCH
+    c = train_cfg("bf16")
+    c[ConfigValue.ITERATIONS] = iters
+    c[ConfigValue.EVAL_INTERVAL] = iters // LONG_PASSES
+    c[ConfigValue.PRINT_INTERVAL] = LONG_CHUNK * TRAIN_BATCH
+    c[ConfigValue.SNAPSHOT_INTERVAL] = iters
+    t = DenoiserTrainer(c, alpha=0.8, tau=0.01,
+                        runs_dir=os.path.join(tmp, "long"))
+    t.set_train_data(paths10["train_images"])
+    t.set_train_label(paths10["train_coords"])
+    t.set_test_data(paths10["val_images"])
+    t.set_test_label(paths10["val_coords"])
+    maps = []
+    t.write_scores = capturing(t.write_scores, maps)
+    nms_cuda.greedy_nms_cuda.launches = 0
+    t0 = time.perf_counter()
+    t.train()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = nms_cuda.greedy_nms_cuda.launches
+    chunk = t._scan.chunk
+    if chunk.replays + chunk.eager_steps != LONG_STEPS or chunk.replays < 1:
+        raise AssertionError(f"the long run: {chunk.replays} graph replays "
+                             f"and {chunk.eager_steps} eager steps")
+    if launches < 1 or len(maps) != LONG_PASSES + 1:
+        raise AssertionError(f"the long run launched K1 {launches} times "
+                             f"over {len(maps)} validations")
+    rows = scores_are_plain(maps, nms_cuda, radius)
+    # Release the run's CUDA graph now, not whenever the cycle collector
+    # reaches the trainer: phase 14 profiles graph replays.
+    torch.cuda.synchronize()
+    chunk.graph.graph.reset()
+    truth = truth_of(paths10)
+    curve = []
+    for _, path in maps:
+        r = read_rows(path)[1:]
+        scores = np.array([float(x[3]) for x in r], np.float32)
+        coords = np.array([[int(x[2]), int(x[1])] for x in r]).reshape(-1, 2)
+        step = int(re.search(r"_(\d{8})_scores", path).group(1)) // TRAIN_BATCH
+        curve.append(f"{step}: " + " / ".join(
+            f"{pick_f1(scores, coords, truth, cut):.4f}"
+            for cut in (THRESHOLD, STAR_THRESHOLD)))
+    losses = [f"{row['step'] // TRAIN_BATCH}: {row['value']:.4f}"
+              for row in read_scalars(t.run_dir_path)
+              if row["tag"] == "train/loss"]
+    log(f"long run: {LONG_STEPS} steps at batch {TRAIN_BATCH} bf16 "
+        f"{TRAIN_PATCH}^2 (alpha 0.8, tau 0.01, learning rate "
+        f"{t.base_learning_rate:g} on the cfg's ramps) in {secs:.1f} s, "
+        f"{LONG_STEPS * TRAIN_BATCH / secs:.1f} samples/s with "
+        f"{len(maps)} validation passes; chunks of {LONG_CHUNK} steps: "
+        f"{chunk.replays} graph replays after {chunk.eager_steps} eager "
+        f"steps | {gpu}")
+    log(f"long run: K1 {launches} launches over {len(maps)} validation "
+        f"passes, each _scores.txt equal to K1's plain version ({rows} "
+        f"rows); validation F1 above {THRESHOLD} / {STAR_THRESHOLD} by step: "
+        f"{', '.join(curve)}; train loss by step: {', '.join(losses)}")
+    return t.run_dir_path, launches
+
+
+def zero_a_weights(wt: str, tmp: str) -> str:
+    """A copy of ``wt`` with the A half of the U-Net's output conv zeroed,
+    so z == mu: the dense forward then draws no noise."""
+    from spr_pick_tpu_torch.denoiser import Denoiser
+    from spr_pick_tpu_torch.utils import checkpoint as ckpt
+
+    state = ckpt.load(wt)
+    den = Denoiser(state["cfg"], device="cpu")
+    den.load_variables(state["trainable"], state["static"])
+    head = den.model.denoise_branch.out_conv.conv
+    with torch.no_grad():
+        head.weight[1:] = 0.0
+        head.bias[1:] = 0.0
+    out = os.path.join(tmp, "zero-a-" + os.path.basename(wt))
+    ckpt.save_weights(out, *den.variables(), state["cfg"], state["mode"])
+    return out
+
+
+def classifier_is_float32(picker, img) -> bool:
+    """Whether the detector's 1x1 classifier returned, on one dense
+    forward of ``img``, exactly a float32 conv of the features it took."""
+    import torch.nn.functional as F
+
+    cls = picker.denoiser.model.detector.classifier
+    seen = []
+    hook = cls.register_forward_hook(
+        lambda mod, args, out: seen.append((args[0], out)))
+    try:
+        picker._forward([img])
+    finally:
+        hook.remove()
+    conv = cls.classifier
+    return all(out.dtype == torch.float32 and torch.equal(
+        out, F.conv2d(z.float(), conv.weight, conv.bias)) for z, out in seen)
+
+
+def trained_gates(Picker, run: str, paths10, tmp: str) -> None:
+    """13c's gates on the long run's weights, read and printed in turn,
+    then the phase raises naming every one that failed:
+
+      * float32 and bf16 F1 of the Picker's picks (above its 0.02 floor)
+        against the planted particles of `val44.mrc`, at least MIN_F1;
+      * bf16 against float32 at band F1 1.0 around the star threshold
+        (tests/test_bf16_parity.py's rule), with the same rule around the
+        lowest cut the floor allows (0.04) printed beside it;
+      * the planted classifier-in-bf16 fault: its heatmap move beside the
+        bf16 path's own drift from float32 and its band F1 are printed
+        (on these weights no pick rule can see it), and the classifier's
+        logits must be a float32 conv of its features on the sound path
+        and must not be on the faulty one;
+      * a planted 2048^2 micrograph picked directly and through 2x2
+        windows at the production knobs (halo 96), with the A head zeroed
+        so that both forwards see the same detector input, at band F1 1.0
+        around the star threshold and around 0.04; the same with the
+        noise drawn (every window its own draw) is printed beside direct
+        picks under another noise seed."""
+    from spr_pick_tpu_torch.data import mrc
+    from spr_pick_tpu_torch.data.loader import load_image
+
+    val = os.path.join(os.path.dirname(paths10["val_images"]), "val44.mrc")
+    vimg = load_image(val)
+    truth = truth_of(paths10)
+    (final,) = [f for f in os.listdir(run) if f.startswith("final-")]
+    wt = os.path.join(run, final)
+    failed = []
+    low = THRESHOLD + MARGIN
+
+    def band(a, b, shape, label, gated):
+        """The band rule around the star threshold and around ``low``; the
+        cuts in ``gated`` must read 1.0."""
+        for cut in (STAR_THRESHOLD, low):
+            f1, msg = band_f1(a, b, shape, cut)
+            must = cut in gated
+            log(f"{'gate' if must else 'finding'}, long-run weights, {label} "
+                f"{msg}{' (must be 1.0)' if must else ''}")
+            if must and f1 != 1.0:
+                failed.append(f"{label} {msg}")
+
+    tf32(False)
+    p32 = Picker(f32_weights(run, tmp), border=0)
+    f32 = p32.pick_arrays(val)
+    h32, _ = forward_map(p32, val)
+    tf32(True)
+    p16 = Picker(wt, border=0)
+    bf = p16.pick_arrays(val)
+    h16, _ = forward_map(p16, val)
+    check_picks(*f32, "long-run float32")
+    check_picks(*bf, "long-run bf16")
+    for picks, dtype in ((f32, "float32"), (bf, "bf16")):
+        log(quality(picks, truth, f"long-run weights {dtype}"))
+        f1 = pick_f1(*star_picks(*picks), truth, THRESHOLD)
+        log(f"gate, long-run weights {dtype}: F1 above {THRESHOLD} {f1:.4f} "
+            f"(floor {MIN_F1})")
+        if f1 < MIN_F1:
+            failed.append(f"{dtype} F1 {f1:.4f} against the planted "
+                          f"particles, floor {MIN_F1}")
+    band(bf[:2], f32[:2], f32[2], "bf16 vs float32", (STAR_THRESHOLD,))
+
+    bad = Picker(wt, border=0)
+    classifier_bf16(bad.denoiser.model)
+    hbad, _ = forward_map(bad, val)
+    log(f"finding, long-run weights, planted fault classifier in bf16: "
+        f"heatmap moved max {float((hbad - h16).abs().max()):.5f} from the "
+        f"sound bf16 path, whose own drift from float32 is max "
+        f"{float((h16 - h32).abs().max()):.5f} (p99 "
+        f"{p99((h16 - h32).abs()):.5f})")
+    band(bad.pick_arrays(val)[:2], f32[:2], f32[2],
+         "planted fault classifier in bf16 vs float32", ())
+    sound, faulty = (classifier_is_float32(p, vimg) for p in (p16, bad))
+    log(f"gate, the classifier's logits a float32 conv of its features: "
+        f"sound bf16 path {sound} (must be True), planted fault {faulty} "
+        f"(must be False)")
+    if not sound or faulty:
+        failed.append("the classifier check does not tell the sound bf16 "
+                      "path from the planted fault")
+
+    img, centres = particle_micrograph(2 * SIZE, SEED + 45)
+    path = os.path.join(tmp, "planted_2048.mrc")
+    mrc.write(path, img)
+    img = load_image(path)
+    planted = centres[:, ::-1].astype(float)
+    for label, weights_path, gated in (
+            ("A head zeroed", zero_a_weights(wt, tmp), (STAR_THRESHOLD, low)),
+            ("noise drawn", wt, ())):
+        picker = Picker(weights_path)
+        ev = picker._ev
+        if (ev.tile_eval_threshold, ev.tile_eval_size,
+                ev.tile_eval_halo) != PRODUCTION_KNOBS:
+            raise AssertionError("the Picker's tiling knobs are not "
+                                 "production's")
+        direct, shape = picker._forward([img])
+        ev.tile_eval_threshold = SIZE  # the same micrograph in 2x2 windows
+        if not picker._tiled(shape):
+            raise AssertionError("the 2048^2 micrograph did not tile")
+        tiled, _ = picker._forward([img])
+        ev.tile_eval_threshold = PRODUCTION_KNOBS[0]
+        hd = picker._heatmaps(direct, shape)[0]
+        ht = picker._heatmaps(tiled, shape)[0]
+        pd_, pt_ = picker._nms(hd), picker._nms(ht)
+        f1d, f1t = (pick_f1(*star_picks(*picks, shape), planted, THRESHOLD)
+                    for picks in (pd_, pt_))
+        log(f"long-run weights bf16, {label}: tiled vs direct {2 * SIZE}^2 "
+            f"(halo {PRODUCTION_KNOBS[2]}, 2x2 windows of "
+            f"{SIZE + PRODUCTION_KNOBS[2]}^2): heatmap deviation max "
+            f"{float((ht - hd).abs().max()):.5f}, p99 "
+            f"{p99((ht - hd).abs()):.5f}; {len(pt_[0])} vs {len(pd_[0])} "
+            f"picks; F1 above {THRESHOLD} against the {len(planted)} planted "
+            f"particles, direct {f1d:.4f}, tiled {f1t:.4f}")
+        band(pt_, pd_, shape, f"{label}, tiled vs direct", gated)
+        if not gated:
+            picker.seed += 1
+            other = picker._nms(picker._heatmaps(picker._forward([img])[0],
+                                                 shape)[0])
+            band(other, pd_, shape, f"{label}, direct under another noise "
+                 "seed vs direct", ())
+    if failed:
+        raise AssertionError("long-run weights: " + "; ".join(failed))
 
 
 def same_file(a: str, b: str) -> bool:
@@ -3244,6 +3627,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script measures the port on "
               "an NVIDIA GPU", file=sys.stderr)
         return 2
+    faulthandler.enable()  # a crash in native code prints the Python stack
     sys.path.insert(0, REPO)
     from spr_pick_tpu_torch.api import Picker
     from spr_pick_tpu_torch.data import mrc
@@ -3470,6 +3854,12 @@ def main() -> int:
         time_training(trainer, gpu)
         log(f"phase 10 took {time.perf_counter() - t0:.1f} s")
 
+        # 10h. The host joint plane, SPR_HOST_JOINT_DATA=1.
+        t0 = time.perf_counter()
+        launches_in_host_plane = host_plane_phase(paths10, tmp, nms_cuda,
+                                                  radius, gpu)
+        log(f"phase 10h took {time.perf_counter() - t0:.1f} s")
+
         # 11. Denoise-only training on the card.
         t0 = time.perf_counter()
         launches_in_denoise, runs11 = denoise_phase(tmp, Picker, nms_cuda,
@@ -3492,10 +3882,19 @@ def main() -> int:
         max_abs_err = max(max_abs_err, err)
         variants_card_vs_cpu()
         trained_phase(Picker, run10, paths10, tmp)
+        t1 = time.perf_counter()
+        long_run, launches_in_long_run = long_training(paths10, tmp,
+                                                       nms_cuda, radius, gpu)
+        trained_gates(Picker, long_run, paths10, tmp)
+        log(f"phase 13c's long run and gates took "
+            f"{time.perf_counter() - t1:.1f} s")
         tools_phase(paths10, eval8, paths, tmp)
         log(f"phase 13 took {time.perf_counter() - t0:.1f} s")
 
-        # 14. Graphed training chunks; 14e, under an NCCL mesh.
+        # 14. Graphed training chunks; 14e, under an NCCL mesh.  Trainers
+        # of earlier phases that hold CUDA graphs are collected here, out
+        # of the profiler sessions of phase 14.
+        gc.collect()
         t0 = time.perf_counter()
         dn14 = graph_phase(trainer, runs11, paths10, tmp, gpu)
         log(f"phase 14 took {time.perf_counter() - t0:.1f} s")
@@ -3533,6 +3932,8 @@ def main() -> int:
         "launches_in_reference_pick": launches_in_reference,
         "launches_in_ddp_validation": launches_in_ddp,
         "launches_in_stitch_pick": launches_in_stitch,
+        "launches_in_host_plane_training": launches_in_host_plane,
+        "launches_in_long_training": launches_in_long_run,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -356,12 +356,15 @@ class DevicePatchPipeline:
     ``device`` on first use (`images_dev`), or sharded over the ranks of a
     mesh (`shard_over`), and each batch is one gather from it.  Raises
     ValueError when the padded stack would exceed ``max_bytes`` (the
-    trainer then takes `HostPatchPipeline`).
+    trainer then takes `HostPatchPipeline`).  With ``augment`` False the
+    flips are all zero and nothing is drawn from the flip RandomState.
     """
 
     def __init__(self, dataset: MicrographDataset, crop: int,
-                 max_bytes: int = 4 << 30, device: torch.device | str = "cpu"):
+                 augment: bool = True, max_bytes: int = 4 << 30,
+                 device: torch.device | str = "cpu"):
         self.crop = crop
+        self.augment = augment
 
         flat_images, flat_hms = [], []
         self.flat_of: Dict[Tuple[int, int], int] = {}
@@ -459,9 +462,12 @@ class DevicePatchPipeline:
 
     def flips(self, shape) -> np.ndarray:
         """0/1 W-flip bits of ``shape`` from the flip RandomState: a chunk's
-        (K, B) draw is the numbers of K batches' (B,) draws."""
-        return (self._np_rng.rand(*np.atleast_1d(shape)) < 0.5).astype(
-            np.int32)
+        (K, B) draw is the numbers of K batches' (B,) draws.  Without
+        ``augment``, zeros and no draw."""
+        shape = tuple(np.atleast_1d(shape))
+        if not self.augment:
+            return np.zeros(shape, np.int32)
+        return (self._np_rng.rand(*shape) < 0.5).astype(np.int32)
 
     def batch(self, packed_indices: np.ndarray) -> Dict[str, torch.Tensor]:
         flat, ys, xs = self.decode(packed_indices)
@@ -475,13 +481,15 @@ class DevicePatchPipeline:
 class HostPatchPipeline:
     """Host fallback of the joint data plane: numpy crops straight from the
     dataset's arrays, so capacity is bounded by host memory like the
-    reference's DataLoader path.  Parity:
+    reference's DataLoader path.  The trainer takes it when the device
+    plane is over its budget, or under ``SPR_HOST_JOINT_DATA=1``.  Parity:
     `spr_pick_tpu/data/micrograph.py:516-552`."""
 
     def __init__(self, dataset: MicrographDataset, crop: int,
-                 device: torch.device | str = "cpu"):
+                 augment: bool = True, device: torch.device | str = "cpu"):
         self.dataset = dataset
         self.crop = crop
+        self.augment = augment
         self.device = torch.device(device)
         self._np_rng = np.random.RandomState(0)
 
@@ -497,7 +505,8 @@ class HostPatchPipeline:
         b = len(packed)
         inp = np.empty((b, self.crop, self.crop, 1), np.float32)
         target = np.empty((b,), np.float32)
-        flips = self._np_rng.rand(b) < 0.5
+        flips = (self._np_rng.rand(b) < 0.5 if self.augment
+                 else np.zeros(b, bool))
         for j, p in enumerate(packed):
             patch, label, _ = self.dataset.train_item(int(p))
             if flips[j]:

@@ -9,7 +9,8 @@ boundaries run as one chunk where the JAX trainer runs its K-step scan
 
   * a TXT manifest with coordinates (joint training; also denoise-only
     ssdn) takes `data/micrograph.py:DevicePatchPipeline`, or
-    `HostPatchPipeline` past the device budget, fed by the sampler;
+    `HostPatchPipeline` past the device budget or under
+    ``SPR_HOST_JOINT_DATA=1``, fed by the sampler;
   * a folder of micrographs (denoise-only) takes
     `data/patches.py:DeviceDenoisePipeline`, or `DenoisePatchPipeline` past
     the budget or under ``SPR_HOST_DENOISE_DATA=1``, each drawing its own
@@ -242,7 +243,10 @@ class DenoiserTrainer(EvaluatorBase):
 
     def train_data(self):
         """Training dataset, sampler (None: the pipeline draws its own
-        batch) and patch pipeline (train.py:279-374)."""
+        batch) and patch pipeline (train.py:279-374).  The joint route takes
+        the device plane within the budget, else, or under
+        ``SPR_HOST_JOINT_DATA=1``, the host plane (not sharded, and stepped
+        one batch at a time: no chunk is built for it)."""
         cfg = self.cfg
         dtype = cfg[ConfigValue.TRAIN_DATASET_TYPE]
         if dtype != DatasetType.TXT:
@@ -259,19 +263,25 @@ class DenoiserTrainer(EvaluatorBase):
             * cfg[ConfigValue.TRAIN_MINIBATCH_SIZE],
             random=np.random.RandomState(int(cfg.get(ConfigValue.SEED, 0))),
         )
-        try:
-            pipeline = DevicePatchPipeline(
-                dataset, crop=patch, max_bytes=_device_data_budget(self.mesh),
-                device=self.device)
-        except ValueError as exc:
-            logger.warning(
-                "device joint data plane unavailable (%s); falling back to "
-                "host batch prep - dataset capacity is now host-RAM-bound, "
-                "like the reference's DataLoader path", exc)
-            return dataset, sampler, HostPatchPipeline(dataset, crop=patch,
-                                                       device=self.device)
-        self._shard(pipeline)
-        return dataset, sampler, pipeline
+        if os.environ.get("SPR_HOST_JOINT_DATA", "0") != "1":
+            try:
+                pipeline = DevicePatchPipeline(
+                    dataset, crop=patch, augment=True,
+                    max_bytes=_device_data_budget(self.mesh),
+                    device=self.device)
+            except ValueError as exc:
+                logger.warning(
+                    "device joint data plane unavailable (%s); falling back "
+                    "to host batch prep - dataset capacity is now "
+                    "host-RAM-bound, like the reference's DataLoader path",
+                    exc)
+            else:
+                self._shard(pipeline)
+                return dataset, sampler, pipeline
+        logger.info("joint data plane: HostPatchPipeline (host batch prep, "
+                    "one train step a batch)")
+        return dataset, sampler, HostPatchPipeline(
+            dataset, crop=patch, augment=True, device=self.device)
 
     def _denoise_train_data(self, dtype):
         """The folder and HDF5 routes of denoise-only training
