@@ -3261,8 +3261,15 @@ def chunk_rates(label: str, t, gpu: str, show: bool = True) -> dict:
     from spr_pick_tpu_torch.steps import train_step
 
     t.denoiser.train()
-    if t._scan is None:
-        t._scan = t._build_scan()
+    # The rates are read on a chunk captured here.  Phase 10's trainer's
+    # graph, captured phases earlier, crashed the process (segmentation
+    # fault in `CUDAGraph.replay`) inside `host_launches`' profiler session
+    # in 5 of 8 runs; graphs captured in this phase never did.
+    old, t._scan = t._scan, t._build_scan()
+    if old is not None and old.chunk.graph is not None \
+            and old.chunk.graph.graph is not None:
+        torch.cuda.synchronize()
+        old.chunk.graph.graph.reset()
     state, gen = t.train_state, t._train_generator
 
     def eager(k=GRAPH_K):
