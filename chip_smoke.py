@@ -190,7 +190,28 @@ script then exits nonzero and prints no result):
      one-card graphed chunk (medians of 5 with spreads; graphed must be
      faster), host launches a step and the idle share of three traced
      chunks of 3 steps.  The same across two cards where there are
-     two (one process a card), else "not run: one card".
+     two (one process a card), else "not run: one card";
+ 15. what the card had not run: (a) each bf16 stage of a `var` joint
+     model with every bias and BatchNorm statistic perturbed (the U-Net's
+     and the sigma U-Net's ShiftConvs, each op of each ResNet8 block, the
+     input BatchNorm, the classifier), dense and in train mode, fed the
+     same input on the card and on the CPU: the fraction of elements
+     apart and the largest distance in ulps, printed stage by stage; every
+     LeakyReLU fed the CPU's pre-activation must equal the CPU's bit for
+     bit; (b) 13c's bf16-against-float32 readings on the long run's
+     weights, repaired path against the old slope planted; (c) a `var`
+     `.wt` picked on the card against the CPU in float32 (equal pick sets,
+     K1 launched and equal to its plain version), float32 train steps card
+     against CPU to phases 10-11's tolerances for joint `var`, ssdn
+     `known` with `--noise_input` (gauss and poisson), ssdn `const` on a
+     poisson style, ssdn_u_only and n2c; (d) `train start --dn_only` for
+     ssdn_u_only and n2c (`--train_gt`, `--noise_input`), two graphed
+     chunks, K1 launched 0 times, and their graphed chunks against eager
+     steps bit for bit in bf16; (e) four `train start --profile`
+     subprocesses side by side (three graphed chunks, validation at 0 and
+     at the end): each exits 0, its `profile/trace.json` holds K1's and
+     the convs' kernel records of the first print window, and its graph
+     replays after the trace was written.
 
 The weights are random, made from a seed.  The detector's 1x1 classifier
 takes the absolute value of its random weights and a scale and bias fitted
@@ -453,13 +474,33 @@ def check_k1(nms_cuda, nms, radius: int) -> float:
 # Phases 3-4: the main path
 # ---------------------------------------------------------------------------
 
+def sparse_classifier(den, img: np.ndarray) -> None:
+    """Fit the detector's 1x1 classifier of a float32 card `Denoiser` (the
+    A head zeroed) so its heatmap on ``img`` is sparse: the absolute value
+    of its random weights, then a scale and bias putting the median pixel
+    at logit -6 (p = 0.0025) and the 99.9th percentile at +2 (p = 0.88), a
+    confident detector's map."""
+    from spr_pick_tpu_torch.ops.dense_unet import dense_blindspot_unet
+
+    cls = den.model.detector.classifier.classifier
+    with torch.no_grad():
+        cls.weight.abs_()
+        inp = torch.from_numpy(img[None, :, :, None]).cuda()
+        stats = dense_blindspot_unet(den.model.denoise_branch, inp)
+        logit = den.model.detector(stats[..., :1], dense=True).flatten()
+        mid, top = torch.quantile(logit, torch.tensor([0.5, 0.999],
+                                                      device=logit.device))
+        scale = 8.0 / (top - mid)
+        cls.weight.mul_(scale)
+        cls.bias.sub_(mid).mul_(scale).sub_(6.0)
+
+
 def make_checkpoints(tmp: str, img: np.ndarray):
     """Seeded weights -> `.wt` files written with the port's writer:
     main (bf16, as initialised) and, with the A head zeroed so z == mu,
     zero_f32 / zero_bf16 for the dtype and device comparisons."""
     from spr_pick_tpu_torch import cfg as cfg_mod
     from spr_pick_tpu_torch.denoiser import Denoiser
-    from spr_pick_tpu_torch.ops.dense_unet import dense_blindspot_unet
     from spr_pick_tpu_torch.params import (ConfigValue, NoiseAlgorithm,
                                            NoiseValue)
     from spr_pick_tpu_torch.utils import checkpoint as ckpt
@@ -475,22 +516,11 @@ def make_checkpoints(tmp: str, img: np.ndarray):
     den = Denoiser(cfg("f32"), device="cuda")
     den.init_variables(seed=SEED)
     head = den.model.denoise_branch.out_conv.conv
-    cls = den.model.detector.classifier.classifier
     a_w, a_b = head.weight[1:].clone(), head.bias[1:].clone()
     with torch.no_grad():
         head.weight[1:] = 0.0
         head.bias[1:] = 0.0
-        cls.weight.abs_()
-        inp = torch.from_numpy(img[None, :, :, None]).cuda()
-        stats = dense_blindspot_unet(den.model.denoise_branch, inp)
-        logit = den.model.detector(stats[..., :1], dense=True).flatten()
-        mid, top = torch.quantile(logit, torch.tensor([0.5, 0.999],
-                                                      device="cuda"))
-        # Median pixel at logit -6 (p = 0.0025), the 99.9th percentile at +2
-        # (p = 0.88): a confident detector's sparse map.
-        scale = 8.0 / (top - mid)
-        cls.weight.mul_(scale)
-        cls.bias.sub_(mid).mul_(scale).sub_(6.0)
+    sparse_classifier(den, img)
     paths = {}
     for name, dtype in (("zero_f32", "f32"), ("zero_bf16", "bf16")):
         paths[name] = os.path.join(tmp, f"{name}.wt")
@@ -1126,7 +1156,7 @@ STEP_ATOL_BN = 1e-4
 ADAM_RTOL, ADAM_ATOL = 1e-6, 1e-7
 
 
-def train_cfg(dtype: str):
+def train_cfg(dtype: str, noise_value: str = "const"):
     from spr_pick_tpu_torch import cfg as cfg_mod
     from spr_pick_tpu_torch.params import (ConfigValue, NoiseAlgorithm,
                                            NoiseValue)
@@ -1134,7 +1164,7 @@ def train_cfg(dtype: str):
     c = cfg_mod.base()
     c[ConfigValue.ALGORITHM] = NoiseAlgorithm.SELFSUPERVISED_DENOISING
     c[ConfigValue.NOISE_STYLE] = "gauss"
-    c[ConfigValue.NOISE_VALUE] = NoiseValue.UNKNOWN_CONSTANT
+    c[ConfigValue.NOISE_VALUE] = NoiseValue(noise_value)
     c[ConfigValue.COMPUTE_DTYPE] = dtype
     return c
 
@@ -1147,7 +1177,8 @@ def tree_leaves(tree, prefix=""):
         yield prefix, np.asarray(tree)
 
 
-def train_step_card_vs_cpu(img: np.ndarray, fold: bool, flip_p: float):
+def train_step_card_vs_cpu(img: np.ndarray, fold: bool, flip_p: float,
+                           noise_value: str = "const"):
     """One float32 train step on the card and on the CPU: same seeded
     weights, the same 16 crops of the micrograph and PU labels, the same
     noises and flip draw.  Returns the largest errors found."""
@@ -1164,9 +1195,11 @@ def train_step_card_vs_cpu(img: np.ndarray, fold: bool, flip_p: float):
     target = np.where(rng.rand(b) < 0.5, -1.0, rng.rand(b)).astype(np.float32)
     eps = [rng.randn(n, TRAIN_PATCH, TRAIN_PATCH, 1).astype(np.float32)
            for n in ([2 * b] if fold else [b, b])]
-    cpu = Denoiser(train_cfg("f32"), device="cpu", fold_tta=fold)
+    cpu = Denoiser(train_cfg("f32", noise_value), device="cpu",
+                   fold_tta=fold)
     cpu.init_variables(SEED)
-    card = Denoiser(train_cfg("f32"), device="cuda", fold_tta=fold)
+    card = Denoiser(train_cfg("f32", noise_value), device="cuda",
+                    fold_tta=fold)
     card.load_variables(*cpu.variables())
     out = {}
     for name, den in (("card", card), ("cpu", cpu)):
@@ -1199,7 +1232,10 @@ def train_step_card_vs_cpu(img: np.ndarray, fold: bool, flip_p: float):
         err["loss"] = max(err["loss"], rel)
         if rel > STEP_RTOL_LOSS:
             raise AssertionError(f"train step {k}: card vs CPU rtol {rel:.3e}")
-    if g_card.keys() != g_cpu.keys() or "/l_params/estimated_sigma" not in g_cpu:
+    # The noise s.d.'s own leaves: the learnt constant, or the sigma U-Net.
+    own = "/l_params/estimated_sigma" if noise_value == "const" else "/sigma/"
+    if g_card.keys() != g_cpu.keys() or not any(k.startswith(own)
+                                                 for k in g_cpu):
         raise AssertionError("train step: gradient leaves differ")
     num = den = 0.0
     for k, want in g_cpu.items():
@@ -1632,36 +1668,43 @@ def write_denoise_set(d: str):
     return paths
 
 
-def denoise_cfg(algorithm: str, dtype: str, channels: int = 1):
+def denoise_cfg(algorithm: str, dtype: str, channels: int = 1,
+                noise_value: str = None, style: str = DN_STYLE):
     from spr_pick_tpu_torch import cfg as cfg_mod
     from spr_pick_tpu_torch.params import (ConfigValue, NoiseAlgorithm,
                                            NoiseValue)
 
     c = cfg_mod.base()
     c[ConfigValue.ALGORITHM] = NoiseAlgorithm(algorithm)
-    c[ConfigValue.NOISE_STYLE] = DN_STYLE
+    c[ConfigValue.NOISE_STYLE] = style
     if algorithm == "ssdn":
-        c[ConfigValue.NOISE_VALUE] = NoiseValue.UNKNOWN_CONSTANT
+        c[ConfigValue.NOISE_VALUE] = NoiseValue(noise_value or "const")
     c[ConfigValue.COMPUTE_DTYPE] = dtype
     c[ConfigValue.IMAGE_CHANNELS] = channels
     return c
 
 
 def denoise_step_card_vs_cpu(algorithm: str, batch, eps=None,
-                             channels: int = 1):
+                             channels: int = 1, noise_value: str = None,
+                             style: str = DN_STYLE, head_bias=None):
     """One float32 denoise-only train step on the card and on the CPU from
     the same seeded weights, batch and sample noise: loss terms, gradients
     (relative L2; leaves the loss does not reach must have no gradient on
     either device), the detector's BatchNorm statistics, and the parameters
-    after Adam on the CPU's gradients.  Returns the largest errors."""
+    after Adam on the CPU's gradients.  ``head_bias`` = (mu, A) sets the
+    biases of the U-Net's output conv.  Returns the largest errors."""
     from spr_pick_tpu_torch import weights
     from spr_pick_tpu_torch.denoiser import Denoiser
     from spr_pick_tpu_torch.params import PipelineOutput as PO
     from spr_pick_tpu_torch.steps import make_optimizer
 
-    c = denoise_cfg(algorithm, "f32", channels)
+    c = denoise_cfg(algorithm, "f32", channels, noise_value, style)
     cpu = Denoiser(c, mode="denoise", device="cpu")
     cpu.init_variables(SEED)
+    if head_bias is not None:
+        with torch.no_grad():
+            bias = cpu.model.denoise_branch.out_conv.conv.bias
+            bias[0], bias[1:] = head_bias
     if channels > 1:
         with torch.no_grad():
             cpu.l_params["estimated_sigma"].fill_(DN_SIGMA)
@@ -3208,7 +3251,8 @@ def graphed_vs_eager(kind: str, dtype: str, t, eager_runs: int = 1):
         scan = make_train_scan(state.denoiser, 0.8, 0.01, TRAIN_PATCH)
     else:
         scan = make_denoise_scan(state.denoiser, 0.8, 0.01, TRAIN_PATCH,
-                                 pipe.algorithm, pipe.noise_style)
+                                 pipe.algorithm, pipe.noise_style,
+                                 noise_input=pipe.noise_input)
     losses = []
     for r in rows:
         if joint:
@@ -3230,7 +3274,8 @@ def graphed_vs_eager(kind: str, dtype: str, t, eager_runs: int = 1):
                 else:
                     batch = prepare_batch_torch(
                         pipe.gather(r[0][i], r[1][i], r[2][i]),
-                        pipe.algorithm, pipe.noise_style, gens[1])
+                        pipe.algorithm, pipe.noise_style, gens[1],
+                        noise_input=pipe.noise_input)
                 out = train_step(state, batch, float(GRAPH_LRS[i]), 0.8,
                                  0.01, generator=gens[0])
                 eager.append(torch.mean(out["loss"]).float())
@@ -3629,6 +3674,623 @@ def mesh_graph_phase(t10, dn, run10: str, runs11, tmp: str, gpu: str):
             f"{time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: bf16 stages card against CPU, the bf16 shift on trained weights,
+# the configurations the card had not run, and `train start --profile`
+# ---------------------------------------------------------------------------
+
+STAGE_SIZE = 128     # 15a: the dense stages' micrograph edge
+STAGE_BATCH = 4      # 15a: the train-mode stages' batch of 64^2 crops
+RMS_FLOOR = 2.0 ** -8
+PROFILE_RUNS = 4     # 15e: `train start --profile` subprocesses
+PROFILE_K = 4        # 15e: steps a chunk (three chunks a run)
+DN15_ITERS = 8 * TRAIN_BATCH  # 15d: `train start --dn_only`, 2 chunks of 4
+
+
+def ulp_stats(got, want, scale=None):
+    """(fraction of elements that differ, largest distance in bf16 ulps),
+    the ulp taken where the stage rounded: at the larger of |want|,
+    RMS_FLOOR of the stage's RMS and |``scale``| (a conv's value before its
+    bias), as tests/test_torch_bf16_stages.py measures."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    mag = torch.maximum(want.abs(), RMS_FLOOR * want.pow(2).mean().sqrt())
+    if scale is not None:
+        mag = torch.maximum(mag, scale.detach().float().cpu().abs())
+    ulp = torch.exp2(torch.floor(torch.log2(mag.clamp(min=2.0 ** -126))) - 7)
+    d = (got - want).abs() / ulp
+    return float((d > 0).float().mean()), float(d.max())
+
+
+def perturb_(den, seed: int) -> None:
+    """Every bias and every BatchNorm parameter and statistic moved from
+    its init, as trained weights are (the CPU stage tests do the same)."""
+    g = torch.Generator().manual_seed(seed)
+    mods = [den.model] + ([den.sigma_model] if den.sigma_model is not None
+                          else [])
+    with torch.no_grad():
+        for m in mods:
+            for name, t in m.state_dict().items():
+                if not t.is_floating_point() or t.ndim != 1:
+                    continue
+                r = torch.randn(t.shape, generator=g)
+                if name.endswith("running_var"):
+                    t.copy_(0.5 + torch.rand(t.shape, generator=g))
+                elif name.endswith("weight"):
+                    t.copy_(1.0 + 0.1 * r)
+                else:
+                    t.copy_(0.1 * r)
+
+
+def stage_records(den, run):
+    """(name, module, args, output) of every ShiftConv, ResNet block and
+    classifier that ``run()`` calls on the CPU, in call order."""
+    from spr_pick_tpu_torch.models.blindspot import ShiftConv
+    from spr_pick_tpu_torch.models.joint import Detector
+    from spr_pick_tpu_torch.models.resnet import (BasicConv2d,
+                                                  LinearClassifier, ResidA)
+
+    recs, hooks = [], []
+    groups = [("model", den.model)]
+    if den.sigma_model is not None:
+        groups.append(("sigma", den.sigma_model))
+    for prefix, root in groups:
+        for name, m in root.named_modules():
+            if isinstance(m, (ShiftConv, BasicConv2d, ResidA,
+                              LinearClassifier, Detector)):
+                hooks.append(m.register_forward_hook(
+                    lambda mod, args, out, n=f"{prefix}.{name}":
+                    recs.append((n, mod, args, out.detach()))))
+    try:
+        with torch.no_grad():
+            run()
+    finally:
+        for h in hooks:
+            h.remove()
+    return recs
+
+
+def block_stages(blk, card_blk, x, dense: bool):
+    """Each op of a ResNet block (conv, BatchNorm in float32 cast back,
+    ReLU, the projection, the residual add), fed the CPU's input of that
+    op: a list of (op, card output, CPU output) in order.  The CPU's last
+    output is the block's own output (the caller checks)."""
+    import copy
+
+    import torch.nn.functional as F
+
+    from spr_pick_tpu_torch.models.blindspot import conv2d
+    from spr_pick_tpu_torch.models.resnet import ResidA, batch_norm
+
+    dt, out = blk.dtype, []
+
+    def op(name, fn, *inputs):
+        want = fn(blk, *inputs)
+        out.append((name, fn(card_blk, *[t.cuda() for t in inputs]), want))
+        return want
+
+    def bn(attr):
+        return lambda b, t: batch_norm(t, copy.deepcopy(getattr(b, attr)),
+                                       dt)
+
+    def relu(b, t):
+        return F.relu(t)
+
+    f = blk.dense_factor if dense else 1
+    s = 1 if dense else blk.stride
+    if not isinstance(blk, ResidA):
+        y = op("conv", lambda b, t: conv2d(t, b.conv, dt, stride=s,
+                                           dilation=blk.dilation * f), x)
+        op("relu", relu, op("bn", bn("bn"), y))
+        return out
+    d0, d1 = f, blk.dilation * f
+    h = op("relu0", relu, op("bn0", bn("bn0"), op(
+        "conv0", lambda b, t: conv2d(t, b.conv0, dt, dilation=d0), x)))
+    y = op("conv1", lambda b, t: conv2d(t, b.conv1, dt, stride=s,
+                                        dilation=d1), h)
+    e = d0 + d1
+    xc = x[:, :, e:-e, e:-e]
+    if blk.proj is not None:
+        xc = op("proj", lambda b, t: conv2d(t, b.proj, dt, stride=s), xc)
+    elif s > 1:
+        xc = xc[:, :, ::s, ::s]
+    y = op("add", lambda b, t, u: t + u.to(t.dtype), y, xc)
+    op("relu1", relu, op("bn1", bn("bn1"), y))
+    return out
+
+
+def bf16_stages_phase(gpu: str) -> None:
+    """15a.  Each bf16 stage of the joint model (`var`: with the sigma
+    U-Net), fed the same input on the card and on the CPU: the input the
+    CPU's own forward gave that stage.  Dense eval at STAGE_SIZE^2 and a
+    train-mode step's forward at batch STAGE_BATCH, 64^2; every bias and
+    BatchNorm statistic perturbed.  Printed: the fraction of elements apart
+    and the largest distance in ulps, stage by stage (cuDNN's rounding
+    beside oneDNN's); gated: each LeakyReLU fed the CPU's pre-activation
+    equals the CPU's bit for bit."""
+    import copy
+
+    from spr_pick_tpu_torch.denoiser import Denoiser
+    from spr_pick_tpu_torch.models.blindspot import ShiftConv, leaky_relu
+    from spr_pick_tpu_torch.models.joint import Detector
+    from spr_pick_tpu_torch.models.resnet import (BasicConv2d, ResidA,
+                                                  batch_norm)
+
+    c = train_cfg("bf16", "var")
+    cpu = Denoiser(c, device="cpu", fold_tta=True)
+    cpu.init_variables(SEED)
+    perturb_(cpu, SEED + 80)
+    card = Denoiser(c, device="cuda", fold_tta=True)
+    card.load_variables(*cpu.variables())
+    img, _ = particle_micrograph(STAGE_SIZE, SEED + 81)
+    rng = np.random.RandomState(SEED + 82)
+    inp = torch.from_numpy(img[None, :, :, None])
+    eps = torch.from_numpy(rng.randn(1, STAGE_SIZE, STAGE_SIZE, 1)
+                           .astype(np.float32))
+    crops = torch.from_numpy(rng.rand(STAGE_BATCH, 64, 64, 1)
+                             .astype(np.float32))
+    target = torch.from_numpy(np.where(rng.rand(STAGE_BATCH) < 0.5, -1.0,
+                                       rng.rand(STAGE_BATCH))
+                              .astype(np.float32))
+    eps2 = torch.from_numpy(rng.randn(2 * STAGE_BATCH, 64, 64, 1)
+                            .astype(np.float32))
+    modes = (
+        ("dense eval", False, lambda: cpu.joint_pipeline({"inp": inp},
+                                                         eps=eps)),
+        ("train", True, lambda: cpu.joint_train_pipeline(
+            {"inp": crops, "target": target}, 0.8, 0.01, eps=eps2,
+            flip_p=torch.tensor(0.3))),
+    )
+    exact = total = 0
+    for label, train, run in modes:
+        cpu.train(train)
+        card.train(train)
+        recs = stage_records(cpu, run)
+        by_group = {}
+        for name, mod, args, out in recs:
+            m = card.model if name.startswith("model.") else card.sigma_model
+            sub = m.get_submodule(name.split(".", 1)[1])
+            if train:
+                sub = copy.deepcopy(sub)
+            with torch.no_grad():
+                if isinstance(mod, Detector):
+                    # Its input BatchNorm (its blocks are stages of their
+                    # own), computed in float32 and cast.
+                    z = args[0].permute(0, 3, 1, 2)
+                    out = batch_norm(z, copy.deepcopy(mod.input_bn),
+                                     mod.dtype)
+                    got = batch_norm(z.cuda(), sub.input_bn, sub.dtype)
+                    name = name + ".input_bn"
+                elif isinstance(mod, (BasicConv2d, ResidA)):
+                    ops = block_stages(mod, sub, args[0], args[1])
+                    if not torch.equal(ops[-1][2], out):
+                        raise AssertionError(f"15a {name}: its ops do not "
+                                             "make the block's output")
+                    short = name.replace("model.detector.features.", "")
+                    for op, got, want in ops:
+                        frac, worst = ulp_stats(got, want)
+                        by_group.setdefault("detector", []).append(
+                            f"{short}.{op} {frac:.2e}/{worst:g}")
+                    continue
+                else:
+                    got = sub(*[a.cuda() if isinstance(a, torch.Tensor)
+                                else a for a in args])
+            scale = None
+            if isinstance(mod, ShiftConv):
+                scale = out.float() - mod.conv.bias.to(out.dtype).float()[
+                    :, None, None]
+                pre = out
+                total += 1
+                if torch.equal(leaky_relu(pre.cuda()).cpu(), leaky_relu(pre)):
+                    exact += 1
+                else:
+                    raise AssertionError(f"15a {label} {name}: LeakyReLU on "
+                                         "the card differs from the CPU")
+            if out.dtype == torch.float32:
+                text = f"rel L2 {rel_l2(got.cpu().numpy(), out.numpy()):.2e}"
+            else:
+                frac, worst = ulp_stats(got, out, scale)
+                text = f"{frac:.2e}/{worst:g}"
+            group = ("sigma U-Net" if name.startswith("sigma.") else
+                     "U-Net" if ".denoise_branch." in name else "detector")
+            short = name.split(".", 1)[1].replace("denoise_branch.", "") \
+                .replace("detector.features.", "").replace("detector.", "")
+            by_group.setdefault(group, []).append(f"{short} {text}")
+        for group, items in by_group.items():
+            log(f"bf16 stages card vs CPU, {label}, {group} (each fed the "
+                f"CPU's input; fraction of elements apart / largest distance "
+                f"in ulps, float32 outputs by relative L2): "
+                f"{'; '.join(items)} | {gpu}")
+    log(f"bf16 stages card vs CPU: LeakyReLU fed the CPU's bf16 "
+        f"pre-activation equal bit for bit in {exact} of {total} stages "
+        f"(gate: all) | {gpu}")
+
+
+def old_bf16_slope(model) -> None:
+    """A planted fault: the U-Net's LeakyReLU multiplying by 0.1 in
+    float32, as it did before its repair (the JAX package's bf16 slope is
+    bf16(0.1) = 0.10009765625).  On the card that was the whole of the old
+    bf16 path's difference: cuDNN's path already rounded each conv before
+    adding its bias.  Made on one model here, never in the package."""
+    from types import MethodType
+
+    import torch.nn.functional as F
+
+    unet = model.denoise_branch
+
+    def conv_old_slope(self, name, h):
+        return F.leaky_relu(getattr(self, name)(h), 0.1)
+
+    unet._conv = MethodType(conv_old_slope, unet)
+
+
+def bf16_shift_phase(Picker, run: str, paths10, tmp: str, gpu: str) -> None:
+    """15b.  13c's bf16-against-float32 readings on the long run's weights
+    (val44 at 1024^2): the heatmap's largest rise over float32 and its
+    p99, and the band F1 around the star threshold and around 0.04, on
+    the repaired bf16 path and on the same path with the old slope
+    planted, in this one run.  Findings: 13c's gates hold the repaired
+    path."""
+    val = os.path.join(os.path.dirname(paths10["val_images"]), "val44.mrc")
+    (final,) = [f for f in os.listdir(run) if f.startswith("final-")]
+    wt = os.path.join(run, final)
+    tf32(False)
+    p32 = Picker(f32_weights(run, tmp), border=0)
+    f32 = p32.pick_arrays(val)
+    h32, _ = forward_map(p32, val)
+    tf32(True)
+    for label, plant in (("repaired", None),
+                         ("old slope planted (the path before its repair)",
+                          old_bf16_slope)):
+        p16 = Picker(wt, border=0)
+        if plant is not None:
+            plant(p16.denoiser.model)
+        bf = p16.pick_arrays(val)
+        h16, _ = forward_map(p16, val)
+        d = h16 - h32
+        bands = []
+        for cut in (STAR_THRESHOLD, THRESHOLD + MARGIN):
+            try:
+                bands.append(band_f1(bf[:2], f32[:2], f32[2], cut)[1])
+            except AssertionError as exc:  # no confident picks at the cut
+                bands.append(f"around {cut}: {exc}")
+        bands = "; ".join(bands)
+        log(f"bf16 shift, long-run weights, bf16 {label} vs float32: "
+            f"heatmap max rise {float(d.max()):.5f}, max fall "
+            f"{float(-d.min()):.5f}, p99 |diff| {p99(d.abs()):.5f}; "
+            f"{len(bf[0])} vs {len(f32[0])} picks; {bands} | {gpu}")
+
+
+def var_checkpoint(tmp: str, img: np.ndarray) -> str:
+    """A float32 joint `.wt` with the `var` sigma U-Net (seeded), the A
+    head zeroed and the classifier fitted sparse as in
+    `make_checkpoints`."""
+    from spr_pick_tpu_torch import cfg as cfg_mod
+    from spr_pick_tpu_torch.denoiser import Denoiser
+    from spr_pick_tpu_torch.params import (ConfigValue, NoiseAlgorithm,
+                                           NoiseValue)
+    from spr_pick_tpu_torch.utils import checkpoint as ckpt
+
+    c = cfg_mod.base()
+    c[ConfigValue.ALGORITHM] = NoiseAlgorithm.SELFSUPERVISED_DENOISING
+    c[ConfigValue.NOISE_STYLE] = "gauss"
+    c[ConfigValue.NOISE_VALUE] = NoiseValue.UNKNOWN_VARIABLE
+    c[ConfigValue.COMPUTE_DTYPE] = "f32"
+    den = Denoiser(c, device="cuda")
+    den.init_variables(seed=SEED)
+    head = den.model.denoise_branch.out_conv.conv
+    with torch.no_grad():
+        head.weight[1:] = 0.0
+        head.bias[1:] = 0.0
+    sparse_classifier(den, img)
+    path = os.path.join(tmp, "var_f32.wt")
+    ckpt.save_weights(path, *den.variables(), c, "joint")
+    return path
+
+
+def var_pick(Picker, wt: str, nms_cuda, radius: int, gpu: str) -> int:
+    """15c.  `Picker.pick_arrays` of a `var` `.wt` on the card against the
+    CPU in float32 (TF32 off) on the 250x300 micrograph: equal pick sets,
+    scores within 1e-5; K1 launched, and equal to its plain version on
+    that heatmap.  Returns K1's launches in the pick."""
+    tf32(False)
+    small = micrograph(PARITY_SHAPE, SEED + 1)
+    picker = Picker(wt, border=0)
+    if picker.denoiser.sigma_model is None:
+        raise AssertionError("the var .wt built no sigma U-Net")
+    nms_cuda.greedy_nms_cuda.launches = 0
+    on_gpu = picker.pick_arrays(small)
+    launches = nms_cuda.greedy_nms_cuda.launches
+    on_cpu = Picker(wt, border=0, device="cpu").pick_arrays(small)
+    check_picks(*on_gpu, "var float32 card")
+    if not (np.array_equal(on_gpu[1], on_cpu[1])
+            and np.allclose(on_gpu[0], on_cpu[0], atol=1e-5, rtol=0)):
+        raise AssertionError(f"var float32 card vs CPU picks differ: "
+                             f"{len(on_gpu[0])} vs {len(on_cpu[0])}")
+    hm, _ = forward_map(picker, small)
+    got = nms_cuda.greedy_nms_cuda(hm[None], radius, THRESHOLD,
+                                   picker.max_peaks)
+    want = nms_cuda.greedy_nms_plain(hm[None], radius, THRESHOLD,
+                                     picker.max_peaks)
+    if launches < 1 or not all(torch.equal(a.cpu(), b.cpu())
+                               for a, b in zip(got, want)):
+        raise AssertionError(f"var pick: K1 launched {launches} times, or "
+                             "differs from its plain version")
+    tf32(True)
+    log(f"var pick float32 card vs CPU {PARITY_SHAPE[0]}x{PARITY_SHAPE[1]} "
+        f"(TF32 off; the sigma U-Net on the card): {len(on_gpu[0])} picks "
+        f"equal, max score diff "
+        f"{float(np.abs(on_gpu[0] - on_cpu[0]).max()):.2e}; K1 launched "
+        f"{launches} time(s), == plain on that heatmap "
+        f"({int(got[2][0])} picks) | {gpu}")
+    return launches
+
+
+def step_line(label: str, err: dict) -> str:
+    return (f"{label}: loss terms max rtol {err['loss']:.2e} (tol "
+            f"{STEP_RTOL_LOSS}), gradient relative L2 {err['grad l2']:.2e} "
+            f"(tol {STEP_GRAD_L2}), worst leaf {err['leaf l2']:.2e} (tol "
+            f"{STEP_LEAF_L2}), BatchNorm running stats |diff| "
+            f"{err['bn']:.2e} (tol {STEP_ATOL_BN}), params after Adam on "
+            f"the same gradients |diff| {err['adam']:.2e} (rtol "
+            f"{ADAM_RTOL}, atol {ADAM_ATOL})")
+
+
+def config_steps(img: np.ndarray, gpu: str) -> None:
+    """15c-d.  One float32 train step (TF32 off) card against CPU for each
+    configuration the card had not run, to phases 10-11's tolerances:
+    joint `var` (the sigma U-Net in the step); denoise-only ssdn `known`
+    with `--noise_input` (gauss and poisson: the input noised, the s.d.
+    from the batch), ssdn `const` on a poisson style, ssdn_u_only and n2c
+    (the noised crop against its clean twin)."""
+    from spr_pick_tpu_torch.data.noisy import prepare_batch
+    from spr_pick_tpu_torch.params import NoiseAlgorithm as NA
+
+    tf32(False)
+    err = train_step_card_vs_cpu(img, True, 0.3, noise_value="var")
+    log(f"train step float32 card vs CPU, joint var (sigma U-Net), batch "
+        f"{TRAIN_BATCH}, folded flip-TTA: loss terms max rtol "
+        f"{err['loss']:.2e} (tol {STEP_RTOL_LOSS}), consistency term |diff| "
+        f"{err['aug']:.2e} (tol {STEP_ATOL_AUG}), gradient relative L2 "
+        f"{err['grad l2']:.2e} (tol {STEP_GRAD_L2}), worst leaf "
+        f"{err['leaf l2']:.2e} (tol {STEP_LEAF_L2}), BatchNorm running "
+        f"stats |diff| {err['bn']:.2e} (tol {STEP_ATOL_BN}), params after "
+        f"Adam |diff| {err['adam']:.2e} | {gpu}")
+    rng = np.random.RandomState(SEED + 83)
+    clean, noisy = denoise_micrograph(SEED + 50)
+    half = TRAIN_PATCH // 2
+    ys, xs = rng.randint(half, SIZE - half, size=(2, TRAIN_BATCH))
+    cut = [np.stack([a[y - half:y + half, x - half:x + half]
+                     for y, x in zip(ys, xs)]) for a in (clean, noisy)]
+    eps = rng.randn(TRAIN_BATCH, TRAIN_PATCH, TRAIN_PATCH, 1).astype(
+        np.float32)
+    cases = (
+        ("ssdn known --noise_input gauss10_50", "ssdn", "known",
+         "gauss10_50", prepare_batch(cut[0], NA.SELFSUPERVISED_DENOISING,
+                                     "gauss10_50", rng, noise_input=True),
+         eps),
+        ("ssdn known --noise_input poisson10_50", "ssdn", "known",
+         "poisson10_50", prepare_batch(cut[0] + 1.0,
+                                       NA.SELFSUPERVISED_DENOISING,
+                                       "poisson10_50", rng,
+                                       noise_input=True), eps),
+        ("ssdn const poisson10_50", "ssdn", "const", "poisson10_50",
+         {"inp": cut[1][..., None] + 1.0}, eps),
+        ("ssdn_u_only", "ssdn_u_only", None, DN_STYLE,
+         prepare_batch(cut[1], NA.SELFSUPERVISED_DENOISING_MEAN_ONLY,
+                       DN_STYLE, rng), None),
+        ("n2c (noised crop against its clean twin)", "n2c", None, DN_STYLE,
+         {"inp": cut[1][..., None], "ref": cut[0][..., None]}, None),
+    )
+    for label, algo, value, style, batch, e in cases:
+        # The poisson steps' output conv starts at bias (2, 1): at mu ~ 0
+        # the noise s.d. sqrt(max(mu, 1e-3) * s) turns float32 rounding of
+        # mu into a loss move of 1.5e-3 a one-ulp nudge of the U-Net's
+        # weights (4e-4 card vs CPU, measured); at mu ~ 2, 7.4e-6.
+        head_bias = (2.0, 1.0) if style.startswith("poisson") else None
+        err = denoise_step_card_vs_cpu(algo, batch, e, noise_value=value,
+                                       style=style, head_bias=head_bias)
+        log(step_line(f"dn train step float32 card vs CPU, {label}, batch "
+                      f"{TRAIN_BATCH}", err) + f" | {gpu}")
+    tf32(True)
+
+
+def dn15_commands(tmp: str, nms_cuda, gpu: str) -> dict:
+    """15d.  `train start --dn_only` in process for ssdn_u_only (phase 11's
+    noisy set) and n2c (the clean twins with `--noise_input`, the twins
+    also given as `--train_gt`), DN15_ITERS iterations at the defaults
+    (bf16, batch 16, 64^2) in two chunks: `final-*.wt`, every logged loss
+    finite, graphed chunks logged, K1 launched 0 times.  Returns the run
+    dirs."""
+    from spr_pick_tpu_torch.cli import cli
+    from spr_pick_tpu_torch.data import mrc
+    from spr_pick_tpu_torch.params import ConfigValue
+    from spr_pick_tpu_torch.utils import checkpoint as ckpt
+
+    d = os.path.join(tmp, "dn15")
+    train, gt = os.path.join(d, "train"), os.path.join(d, "train_gt")
+    for p in (train, gt):
+        os.makedirs(p)
+    for i in range(4):
+        clean, noisy = denoise_micrograph(SEED + 50 + i)
+        mrc.write(os.path.join(train, f"dn{i}.mrc"), noisy)
+        mrc.write(os.path.join(gt, f"dn{i}.mrc"), clean)
+    runs = {}
+    nms_cuda.greedy_nms_cuda.launches = 0
+    for algo, folder, extra in (("ssdn_u_only", train, []),
+                                ("n2c", gt, ["--train_gt", gt,
+                                             "--noise_input"])):
+        runs_dir = os.path.join(d, f"runs_{algo}")
+        t0 = time.perf_counter()
+        cli.start(["train", "start", "--dn_only", "-a", algo, "-n", DN_STYLE,
+                   "-t", folder, "-l", "none", "--alpha", "0.8", "--tau",
+                   "0.01", "--iterations", str(DN15_ITERS),
+                   "--print_interval", str(DN15_ITERS // 2),
+                   "--checkpoint_interval", str(DN15_ITERS), "--runs_dir",
+                   runs_dir, "--mesh", "1", *extra])
+        secs = time.perf_counter() - t0
+        (name,) = os.listdir(runs_dir)
+        run = runs[algo] = os.path.join(runs_dir, name)
+        finals = [f for f in os.listdir(run) if f.startswith("final-")]
+        rows = read_scalars(run)
+        losses = [r["value"] for r in rows if r["tag"] == "train/loss"]
+        with open(os.path.join(run, "log.txt")) as f:
+            graphed = re.search(r"graphed chunks: (\d+) steps replayed from "
+                                r"a CUDA graph after (\d+) eager", f.read())
+        if (len(finals) != 1 or not losses
+                or not all(np.isfinite(r["value"]) for r in rows)
+                or not graphed or int(graphed.group(1)) < 1):
+            raise AssertionError(f"dn train {algo}: final {finals}, losses "
+                                 f"{losses}, graphed chunks logged "
+                                 f"{bool(graphed)}")
+        cfg = ckpt.load(os.path.join(run, finals[0]))["cfg"]
+        note = ""
+        if algo == "n2c":
+            if cfg[ConfigValue.TRAIN_GT_PATH] != gt or not cfg.get(
+                    ConfigValue.NOISE_INPUT):
+                raise AssertionError("n2c: --train_gt or --noise_input did "
+                                     "not reach the cfg")
+            note = (" (--train_gt is kept in the cfg; the folder route of "
+                    "both packages reads none, so the reference is the "
+                    "clean crop that --noise_input noises)")
+        log(f"dn train {algo} (in process) {secs:.1f} s: {DN15_ITERS} "
+            f"iterations, {finals[0]}; losses {', '.join(f'{v:.4f}' for v in losses)}"
+            f", all finite; chunks: {graphed.group(1)} replays after "
+            f"{graphed.group(2)} eager steps{note} | {gpu}")
+    launches = nms_cuda.greedy_nms_cuda.launches
+    if launches != 0:
+        raise AssertionError(f"15d's denoise-only runs launched K1 "
+                             f"{launches} times")
+    log(f"dn train ssdn_u_only and n2c: K1 launched {launches} times")
+    return runs
+
+
+def dn15_graphed(runs: dict, gpu: str) -> None:
+    """15d.  The graphed chunk against eager steps, bf16, bit for bit as in
+    phase 14, for ssdn_u_only and n2c on their runs' device planes."""
+    from spr_pick_tpu_torch.train import resume_run
+
+    what = (f"2 chunks of {GRAPH_K} steps at batch {TRAIN_BATCH} "
+            f"{TRAIN_PATCH}^2 (3 eager warm-up steps, {2 * GRAPH_K - 3} "
+            f"replays)")
+    for algo, run in runs.items():
+        t = resume_run(run, device="cuda")
+        t.trainset, t.train_sampler, t.patch_pipeline = t.train_data()
+        graphed, _, chunk = graphed_vs_eager(algo, "bf16", t)
+        torch.cuda.synchronize()
+        if chunk.graph is not None and chunk.graph.graph is not None:
+            chunk.graph.graph.reset()
+        if not graphed["bitwise"]:
+            raise AssertionError(f"{algo} bf16: graphed vs eager "
+                                 f"{diff_text(graphed)}")
+        log(f"graphed vs eager {algo} bf16, {what}: {diff_text(graphed)}; "
+            f"tolerance: bitwise; generator states equal | {gpu}")
+
+
+def profile_run(trace_dir: str, log_text: str):
+    """(K1 kernel records, conv kernel records, replays, eager steps, the
+    trace written before the later chunks) of one `--profile` run."""
+    kernels = {"k1": 0, "conv": 0}
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        for e in json.load(f).get("traceEvents", []):
+            name = e.get("name", "")
+            if e.get("cat") == "kernel" and "nms_" in name:
+                kernels["k1"] += 1
+            elif e.get("cat") == "kernel" and "conv" in name.lower():
+                kernels["conv"] += 1
+    graphed = re.search(r"graphed chunks: (\d+) steps replayed from a CUDA "
+                        r"graph after (\d+) eager", log_text)
+    written = log_text.find("profiler trace written")
+    if graphed is None:
+        return kernels["k1"], kernels["conv"], 0, 0, False
+    return (kernels["k1"], kernels["conv"], int(graphed.group(1)),
+            int(graphed.group(2)), 0 <= written < graphed.start())
+
+
+def profile_runs(paths10, tmp: str, gpu: str) -> None:
+    """15e.  PROFILE_RUNS `train start --profile` subprocesses at the
+    defaults on phase 10's set, side by side on the card: three graphed
+    chunks of PROFILE_K steps (print interval one chunk), validation at 0
+    and at the end.  Each must exit 0, write `<run>/profile/trace.json`
+    with CUDA kernel records of the first print window (the validation at
+    0: K1's kernels; the first chunk: convolutions), log its graphed
+    chunks, and replay its graph after the trace was written (more
+    replays than the first chunk holds)."""
+    iters = 3 * PROFILE_K * TRAIN_BATCH
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for i in range(PROFILE_RUNS):
+            runs = os.path.join(tmp, f"profile_runs{i}")
+            err = open(os.path.join(tmp, f"profile_run{i}.err"), "w+")
+            procs.append((runs, err, subprocess.Popen(
+                [sys.executable, "-X", "faulthandler", "-c", _BLOCKED,
+                 "train", "start", "-a", "ssdn", "-n", "gauss",
+                 "--noise_value", "const", "-t", paths10["train_images"],
+                 "-l", paths10["train_coords"], "-v", paths10["val_images"],
+                 "-vl", paths10["val_coords"], "--alpha", "0.8", "--tau",
+                 "0.01", "--iterations", str(iters), "--eval_interval",
+                 str(iters), "--print_interval",
+                 str(PROFILE_K * TRAIN_BATCH), "--checkpoint_interval",
+                 str(iters), "--runs_dir", runs, "--mesh", "1", "--profile"],
+                env=dict(os.environ, PYTHONPATH=REPO),
+                stdout=subprocess.DEVNULL, stderr=err)))
+        done, notes = 0, []
+        for i, (runs, err, proc) in enumerate(procs):
+            code = proc.wait(timeout=300)
+            secs = time.perf_counter() - t0
+            if code != 0:
+                err.seek(0)
+                notes.append(f"run {i}: exit {code} after {secs:.1f} s: "
+                             f"{err.read()[-1500:]}")
+                continue
+            (name,) = os.listdir(runs)
+            run = os.path.join(runs, name)
+            with open(os.path.join(run, "log.txt")) as f:
+                k1, conv, replays, eager, after = profile_run(
+                    os.path.join(run, "profile"), f.read())
+            done += (after and replays > PROFILE_K - 3 and k1 > 0
+                     and conv > 0)
+            notes.append(f"run {i}: exit 0 by {secs:.1f} s, trace with K1 "
+                         f"{k1} and conv {conv} kernel records, {replays} "
+                         f"replays after {eager} eager steps, the trace "
+                         f"written before the later chunks: {after}")
+    finally:
+        for _, err, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            err.close()
+    log(f"train start --profile (subprocesses, 3 chunks of {PROFILE_K} "
+        f"steps, validation at 0 and {iters}): {done} of {PROFILE_RUNS} ran "
+        f"to the end with the trace written; {'; '.join(notes)} | {gpu}")
+    if done != PROFILE_RUNS:
+        raise AssertionError(f"train start --profile: {done} of "
+                             f"{PROFILE_RUNS} ran to the end")
+
+
+def config_phase(Picker, img, paths10, long_run, tmp, nms_cuda, radius,
+                 gpu) -> int:
+    """Phase 15.  Returns K1's launches in the `var` pick."""
+    t0 = time.perf_counter()
+    bf16_stages_phase(gpu)
+    log(f"phase 15a took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    bf16_shift_phase(Picker, long_run, paths10, tmp, gpu)
+    log(f"phase 15b took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches = var_pick(Picker, var_checkpoint(tmp, img), nms_cuda, radius,
+                        gpu)
+    config_steps(img, gpu)
+    log(f"phase 15c took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dn15_graphed(dn15_commands(tmp, nms_cuda, gpu), gpu)
+    log(f"phase 15d took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    profile_runs(paths10, tmp, gpu)
+    log(f"phase 15e took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the port on "
@@ -3909,6 +4571,13 @@ def main() -> int:
         mesh_graph_phase(trainer, dn14, run10, runs11, tmp, gpu)
         log(f"phase 14e took {time.perf_counter() - t0:.1f} s")
 
+        # 15. bf16 stages card vs CPU, the bf16 shift on trained weights,
+        # configurations the card had not run, `train start --profile`.
+        t0 = time.perf_counter()
+        launches_in_var_pick = config_phase(Picker, img, paths10, long_run,
+                                            tmp, nms_cuda, radius, gpu)
+        log(f"phase 15 took {time.perf_counter() - t0:.1f} s")
+
     h, w = shape
     bound_ms, bound_by = k1_bound(h, w, k, count, radius)
     big_bound_ms, big_bound_by = k1_bound(*BIG_SHAPE, BIG_CAP, count_big,
@@ -3941,6 +4610,7 @@ def main() -> int:
         "launches_in_stitch_pick": launches_in_stitch,
         "launches_in_host_plane_training": launches_in_host_plane,
         "launches_in_long_training": launches_in_long_run,
+        "launches_in_var_pick": launches_in_var_pick,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,7 @@ Rotations are built from the same flips and transposes as the JAX
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -74,14 +75,36 @@ def conv2d(x: torch.Tensor, conv: nn.Conv2d, dtype: Optional[torch.dtype],
            stride: int = 1, dilation: int = 1) -> torch.Tensor:
     """VALID conv of ``x`` (NCHW) with ``conv``'s parameters, computed in
     ``dtype`` (None: float32).  Input, weight and bias are cast explicitly,
-    like flax's ``nn.Conv(dtype=...)``; parameters stay float32."""
+    like flax's ``nn.Conv(dtype=...)``; parameters stay float32.
+
+    In a reduced-precision dtype the bias is a second op, as in flax's
+    ``nn.Conv`` and `spr_pick_tpu/ops/dense_unet.py:_shift_conv_xla`: the
+    conv is rounded to ``dtype``, then the bias of ``dtype`` is added and
+    the sum rounded again.  cuDNN's path already adds it so; oneDNN fuses
+    it into the conv, one rounding, and differs in about a quarter of bf16
+    elements."""
     cd = dtype or torch.float32
-    bias = None if conv.bias is None else conv.bias.to(cd)
-    return F.conv2d(x.to(cd), conv.weight.to(cd), bias, stride=stride,
-                    dilation=dilation)
+    w = conv.weight.to(cd)
+    if conv.bias is None or cd == torch.float32:
+        bias = None if conv.bias is None else conv.bias.to(cd)
+        return F.conv2d(x.to(cd), w, bias, stride=stride, dilation=dilation)
+    y = F.conv2d(x.to(cd), w, None, stride=stride, dilation=dilation)
+    return y.add_(conv.bias.to(cd)[:, None, None])
+
+
+@functools.lru_cache(maxsize=None)
+def _slope_in(negative_slope: float, dtype: torch.dtype) -> float:
+    return float(torch.tensor(negative_slope, dtype=dtype))
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.1) -> torch.Tensor:
+    """LeakyReLU whose slope is a constant of ``x``'s dtype, as in the JAX
+    package's ``jnp.where(x >= 0, x, x * 0.1)`` and flax's
+    ``nn.leaky_relu``, where the Python scalar takes the array's dtype: in
+    bf16 the slope is bf16(0.1) = 0.10009765625, not 0.1.  Float32 is
+    unchanged (float32(0.1) either way)."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        negative_slope = _slope_in(negative_slope, x.dtype)
     return F.leaky_relu(x, negative_slope)
 
 

@@ -1,6 +1,6 @@
 """One denoise-only training step of the port against the JAX package:
 ssdn on one channel with the noise s.d. constant (learnt scalar), variable
-(the sigma U-Net) and known (from the batch).
+(the sigma U-Net) and known (from the batch), gauss and poisson.
 
 Both packages start from the JAX package's own initial weights
 (`Denoiser.init_variables`, carried across by `Denoiser.load_variables`)
@@ -54,13 +54,14 @@ ATOL_ADAM = 1e-6
 LR = 1e-4
 
 
-def cfgs(algorithm, noise_value=None, channels=1, diagonal=False):
+def cfgs(algorithm, noise_value=None, channels=1, diagonal=False,
+         style="gauss25"):
     out = []
     for mod, cv, na, nv in ((cfg_mod, ConfigValue, NoiseAlgorithm,
                              NoiseValue), (jcfg_mod, JCV, JNA, JNV)):
         c = mod.base()
         c[cv.ALGORITHM] = na(algorithm)
-        c[cv.NOISE_STYLE] = "gauss25"
+        c[cv.NOISE_STYLE] = style
         if noise_value is not None:
             c[cv.NOISE_VALUE] = nv(noise_value)
         c[cv.COMPUTE_DTYPE] = "f32"
@@ -101,13 +102,18 @@ def jax_init(jden, patch, sigma=None):
 
 
 def one_step(algorithm, batch, noise_value=None, channels=1, diagonal=False,
-             eps=None, sigma=None):
+             eps=None, sigma=None, style="gauss25", head_bias=None):
     """Both packages' step from the JAX initial weights on ``batch`` (numpy,
-    NHWC); ``eps`` replaces the JAX sample noise; ``sigma``: `jax_init`.
+    NHWC); ``eps`` replaces the JAX sample noise; ``sigma``: `jax_init`;
+    ``style`` the noise style; ``head_bias`` = (mu, A) the biases of the
+    output conv.
     Returns a dict of both sides' results."""
-    c, j = cfgs(algorithm, noise_value, channels, diagonal)
+    c, j = cfgs(algorithm, noise_value, channels, diagonal, style)
     jden = JDenoiser(j, mode="denoise")
     trainable, static = jax_init(jden, batch["inp"].shape[1], sigma)
+    if head_bias is not None:
+        bias = trainable["model"]["denoise_branch"]["out_conv"]["conv"]["bias"]
+        bias[0], bias[1:] = head_bias
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
 
     def loss_fn(tr):
@@ -222,16 +228,29 @@ def crops(patch, channels=1, seed=1):
     return inp, eps
 
 
-SSDN = {"const": {}, "var": {},
-        "known": {"noise_std": np.array([0.1, 0.2], np.float32
-                                        ).reshape(B, 1, 1, 1)}}
+# id: (noise value, noise style, what the batch adds).  The poisson
+# styles take `_noise_std`'s poisson branches: sqrt(mu * s.d.) estimated,
+# sqrt(mu / lambda) known.  Their output conv starts at bias (2, 1) (mu,
+# A): at the initial weights mu ~ 0, where sqrt(max(mu, 1e-3) * s.d.)
+# turns float32 rounding of mu into a loss move of 1.5e-3 a one-ulp nudge
+# of the U-Net's weights; at mu ~ 2 it is 7.4e-6.
+SSDN = {"const": ("const", "gauss25", {}), "var": ("var", "gauss25", {}),
+        "known": ("known", "gauss25", {"noise_std": np.array(
+            [0.1, 0.2], np.float32).reshape(B, 1, 1, 1)}),
+        "const-poisson": ("const", "poisson30", {}),
+        "known-poisson": ("known", "poisson10_50", {"noise_std": np.array(
+            [12.0, 41.0], np.float32).reshape(B, 1, 1, 1)})}
 
 
 @pytest.fixture(scope="module", params=list(SSDN))
 def ssdn_step(request):
+    noise_value, style, extra = SSDN[request.param]
     inp, eps = crops(64)
-    batch = {"inp": inp, **SSDN[request.param]}
-    return one_step("ssdn", batch, noise_value=request.param, eps=eps)
+    batch = {"inp": inp, **extra}
+    return one_step("ssdn", batch, noise_value=noise_value, eps=eps,
+                    style=style,
+                    head_bias=(2.0, 1.0) if style.startswith("poisson")
+                    else None)
 
 
 def test_loss_terms_match_jax(ssdn_step):
