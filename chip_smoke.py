@@ -4312,7 +4312,7 @@ def main() -> int:
     radius = 15  # cfg NMS default, the Picker's radius
     # 1. Build K1.
     t0 = time.perf_counter()
-    lib_path = nms_cuda.library.build()
+    lib_path, _ = nms_cuda.library.build()
     optin = nms_cuda.library.smem_optin(0)
     edges = ", ".join(
         f"{h}x{w} -> {nms_cuda.tile_edge(h, w, radius, optin)}"

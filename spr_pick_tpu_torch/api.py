@@ -29,6 +29,7 @@ when there is none; only an explicit ``device="cpu"`` runs on the CPU.
 from __future__ import annotations
 
 import os
+import resource
 from typing import Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
@@ -41,6 +42,7 @@ from spr_pick_tpu_torch.eval import DenoiserEvaluator
 from spr_pick_tpu_torch.ops.nms import nms_batch_to_host, nms_to_host
 from spr_pick_tpu_torch.params import ConfigValue, PipelineOutput
 from spr_pick_tpu_torch.steps import eval_step
+from spr_pick_tpu_torch.utils import profiling
 
 ImageLike = Union[str, np.ndarray]
 Picks = Tuple[np.ndarray, np.ndarray]
@@ -75,8 +77,9 @@ class Picker:
                  seed: int = 0, device=None, devices=None):
         # The evaluator owns checkpoint loading and the tiled route; no run
         # dir is created unless evaluate() is called.
-        self._ev = DenoiserEvaluator(checkpoint, mode=mode, device=device,
-                                     devices=devices)
+        with profiling.span("spr.open"):
+            self._ev = DenoiserEvaluator(checkpoint, mode=mode, device=device,
+                                         devices=devices)
         self.device = self._ev.device
         self.denoiser = self._ev.denoiser
         cfg = self._ev.cfg
@@ -96,22 +99,28 @@ class Picker:
     def _forward(self, arrs: List[np.ndarray]):
         """One dense forward over same-shape micrographs, or halo tiling
         for one above the threshold; returns (outputs on the device,
-        original shape)."""
-        square = not self.denoiser.supports_rect_dense
-        padded = []
-        shape = None
-        for a in arrs:
-            p, shape = pad_to_multiple(a, 32, square=square)
-            padded.append(p)
-        generator = torch.Generator(device=self.device).manual_seed(self.seed)
-        if self._tiled(shape):
-            if len(padded) != 1:
-                raise ValueError("halo tiling takes one micrograph at a time")
-            item = {"inp": padded[0][None, :, :, None], "image_shape": shape}
-            return self._ev._evaluate_tiled(item, generator), shape
-        inp = torch.from_numpy(np.stack(padded)[..., None]).to(self.device)
-        return eval_step(self.denoiser, {"inp": inp},
-                         generator=generator), shape
+        original shape).  On the device it returns before the forward
+        ends."""
+        with profiling.span("spr.forward"):
+            square = not self.denoiser.supports_rect_dense
+            padded = []
+            shape = None
+            for a in arrs:
+                p, shape = pad_to_multiple(a, 32, square=square)
+                padded.append(p)
+            generator = torch.Generator(device=self.device).manual_seed(
+                self.seed)
+            if self._tiled(shape):
+                if len(padded) != 1:
+                    raise ValueError(
+                        "halo tiling takes one micrograph at a time")
+                item = {"inp": padded[0][None, :, :, None],
+                        "image_shape": shape}
+                return self._ev._evaluate_tiled(item, generator), shape
+            inp = torch.from_numpy(np.stack(padded)[..., None])
+            inp = inp.to(self.device)
+            return eval_step(self.denoiser, {"inp": inp},
+                             generator=generator), shape
 
     def _tiled(self, shape) -> bool:
         """Whether a micrograph of ``shape`` takes halo tiling: its edge
@@ -142,7 +151,8 @@ class Picker:
                     ) -> Tuple[np.ndarray, np.ndarray, Tuple[int, int]]:
         """Pick one micrograph without pandas -> (scores, coords as (x, y)
         in NMS order, original shape): what `pick` turns into its frame."""
-        return self._pick_loaded(self._load(image, standardize))
+        with profiling.span("spr.request", micrographs=1):
+            return self._pick_loaded(self._load(image, standardize))
 
     def pick(self, image: ImageLike, name: Optional[str] = None,
              standardize: bool = False):
@@ -195,25 +205,26 @@ class Picker:
                 raise ValueError(f"{len(names)} names for {len(images)} images")
         names = [self._name_for(im) if nm is None else nm
                  for im, nm in zip(images, names)]
-        tables = []
-        i = 0
-        carried = None  # shape-mismatched load carried to the next group
-        while i < len(images):
-            first = carried if carried is not None else self._load(
-                images[i], standardize
-            )
-            carried = None
-            group, arrs = [names[i]], [first]
-            while len(group) < batch_size and i + len(group) < len(images):
-                nxt = self._load(images[i + len(group)], standardize)
-                if nxt.shape != first.shape:
-                    carried = nxt  # don't decode it twice
-                    break
-                group.append(names[i + len(group)])
-                arrs.append(nxt)
-            tables.extend(self._pick_group(group, arrs))
-            i += len(group)
-        return tbl.concat(tables)
+        with profiling.span("spr.request", micrographs=len(images)):
+            tables = []
+            i = 0
+            carried = None  # shape-mismatched load carried to the next group
+            while i < len(images):
+                first = carried if carried is not None else self._load(
+                    images[i], standardize
+                )
+                carried = None
+                group, arrs = [names[i]], [first]
+                while len(group) < batch_size and i + len(group) < len(images):
+                    nxt = self._load(images[i + len(group)], standardize)
+                    if nxt.shape != first.shape:
+                        carried = nxt  # don't decode it twice
+                        break
+                    group.append(names[i + len(group)])
+                    arrs.append(nxt)
+                tables.extend(self._pick_group(group, arrs))
+                i += len(group)
+            return tbl.concat(tables)
 
     def _pick_group(self, names, arrs):
         """One dense forward + one batched NMS over a same-shape group;
@@ -239,18 +250,26 @@ class Picker:
         )
 
     def _load(self, image: ImageLike, standardize: bool) -> np.ndarray:
-        if isinstance(image, str):
-            return load_image(image, standardize=standardize)
-        img = np.ascontiguousarray(image, np.float32)
-        if img.ndim != 2:
-            raise ValueError(f"expected a 2-D micrograph, got {img.shape}")
+        """A micrograph as float32 H,W: a path decoded, an array checked.
+        Its span counts the thread's minor page faults (``minflt``)."""
+        with profiling.span("spr.load") as attrs:
+            faults = _minor_faults()
+            if isinstance(image, str):
+                img = load_image(image, standardize=standardize)
+            else:
+                img = np.ascontiguousarray(image, np.float32)
+                if img.ndim != 2:
+                    raise ValueError(
+                        f"expected a 2-D micrograph, got {img.shape}")
+            attrs["minflt"] = _minor_faults() - faults
         return img
 
     def denoise(self, image: ImageLike,
                 standardize: bool = False) -> np.ndarray:
         """Denoise one micrograph -> float32 H,W (original shape)."""
-        outputs, shape = self._forward([self._load(image, standardize)])
-        return self._denoised(outputs, shape)
+        with profiling.span("spr.request", micrographs=1):
+            outputs, shape = self._forward([self._load(image, standardize)])
+            return self._denoised(outputs, shape)
 
     def process(self, image: ImageLike, name: Optional[str] = None,
                 standardize: bool = False):
@@ -265,12 +284,13 @@ class Picker:
         float32 H,W)."""
         if name is None:
             name = self._name_for(image)
-        outputs, shape = self._forward([self._load(image, standardize)])
-        den = self._denoised(outputs, shape)
-        if PipelineOutput.DETECT not in outputs:
-            return None, den
-        scores, coords = self._nms(self._heatmaps(outputs, shape)[0])
-        return self._picks_table(name, scores, coords, shape), den
+        with profiling.span("spr.request", micrographs=1):
+            outputs, shape = self._forward([self._load(image, standardize)])
+            den = self._denoised(outputs, shape)
+            if PipelineOutput.DETECT not in outputs:
+                return None, den
+            scores, coords = self._nms(self._heatmaps(outputs, shape)[0])
+            return self._picks_table(name, scores, coords, shape), den
 
     @staticmethod
     def _denoised(outputs, shape) -> np.ndarray:
@@ -279,4 +299,10 @@ class Picker:
             if PipelineOutput.IMG_DENOISED in outputs
             else PipelineOutput.IMG_MU
         )
-        return unpad(outputs[key][0, :, :, 0].cpu().numpy(), shape)
+        with profiling.span("spr.fetch"):
+            return unpad(outputs[key][0, :, :, 0].cpu().numpy(), shape)
+
+
+def _minor_faults() -> int:
+    """Minor page faults of the calling thread so far."""
+    return resource.getrusage(resource.RUSAGE_THREAD).ru_minflt

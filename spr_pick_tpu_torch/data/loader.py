@@ -23,6 +23,7 @@ from typing import Dict
 import numpy as np
 
 from spr_pick_tpu_torch.data import mrc
+from spr_pick_tpu_torch.utils import profiling
 
 IMAGE_EXTS = (".mrc", ".tiff", ".tif", ".png", ".jpg", ".jpeg")
 
@@ -52,8 +53,10 @@ def load_mrc(path: str, standardize: bool = False) -> np.ndarray:
     """MRC -> min-max-quantised image as float32 in [0, 1].
 
     Parity: loader.py:49-59 + the downstream `to_tensor` /255 division.
+    The file's read is span ``spr.load.read``.
     """
-    array, header, _ = mrc.read(path)
+    with profiling.span("spr.load.read"):
+        array, header, _ = mrc.read(path)
     image = np.asarray(array, dtype=np.float32)
     if standardize:
         image = image - float(header["amean"])

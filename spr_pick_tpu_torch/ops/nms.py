@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from spr_pick_tpu_torch.ops.nms_cuda import greedy_nms
+from spr_pick_tpu_torch.utils import profiling
 
 logger = logging.getLogger("nms")
 
@@ -55,7 +56,9 @@ def nms_batch_device(heatmaps, radius: int, threshold: float = 0.02,
     (scores, coords, counts) tensors on the heatmaps' device, without
     waiting for them.  ``suppressed``: optional (B, H, W) boolean mask of
     initially-suppressed pixels (the reference's `contam` seeding): they
-    can never be picked but do not block picks near them."""
+    can never be picked but do not block picks near them.  Counted as
+    ``k1.calls``."""
+    profiling.count("k1.calls")
     return greedy_nms(_as_maps(heatmaps), radius, threshold, max_peaks,
                       suppressed)
 
@@ -65,50 +68,53 @@ def nms_batch_trim(scores, coords, counts, heatmaps=None, radius=None,
     """Pull batched-NMS results and trim to per-map (scores, coords) numpy
     pairs.  With ``heatmaps`` and ``radius``, maps whose list filled the
     buffer are re-run with a doubled cap (up to ``_MAX_NMS_DOUBLINGS``
-    times); without them the capped lists are kept with a warning."""
-    counts = counts.cpu().numpy()
-    scores = scores.cpu().numpy()
-    coords = coords.cpu().numpy()
-    max_peaks = scores.shape[-1]
-    results = [
-        (scores[i, : counts[i]], coords[i, : counts[i]])
-        for i in range(scores.shape[0])
-    ]
-    todo = np.flatnonzero(counts >= max_peaks)
-    if todo.size == 0:
-        return results
-    if heatmaps is None or radius is None:
-        _warn_if_capped(counts, max_peaks)
-        return results
-
-    hm = _as_maps(heatmaps)
-    sup = None if suppressed is None else torch.as_tensor(suppressed)
-    cap = max_peaks
-    for _ in range(_MAX_NMS_DOUBLINGS):
-        prev, cap = cap, cap * 2
-        logger.warning(
-            "NMS pick list hit the max_peaks cap (%d) on %d of %d map(s); "
-            "auto-retrying those maps with max_peaks=%d",
-            prev, todo.size, len(counts), cap,
-        )
-        idx = torch.as_tensor(todo, device=hm.device)
-        s2, c2, n2 = nms_batch_device(
-            hm.index_select(0, idx), radius, threshold, cap,
-            None if sup is None else sup.index_select(0, idx.to(sup.device)),
-        )
-        s2, c2, n2 = s2.cpu().numpy(), c2.cpu().numpy(), n2.cpu().numpy()
-        for k, i in enumerate(todo):
-            results[i] = (s2[k, : n2[k]], c2[k, : n2[k]])
-        todo = todo[n2 >= cap]
+    times); without them the capped lists are kept with a warning.  The
+    host waits for the device here (span ``spr.fetch``)."""
+    with profiling.span("spr.fetch"):
+        counts = counts.cpu().numpy()
+        scores = scores.cpu().numpy()
+        coords = coords.cpu().numpy()
+        max_peaks = scores.shape[-1]
+        results = [
+            (scores[i, : counts[i]], coords[i, : counts[i]])
+            for i in range(scores.shape[0])
+        ]
+        todo = np.flatnonzero(counts >= max_peaks)
         if todo.size == 0:
             return results
-    logger.warning(
-        "NMS pick list still hit the cap (%d) on %d map(s) after %d "
-        "automatic retries; picks beyond the cap were DROPPED — re-run "
-        "with a larger --max_peaks to get the full list",
-        cap, todo.size, _MAX_NMS_DOUBLINGS,
-    )
-    return results
+        if heatmaps is None or radius is None:
+            _warn_if_capped(counts, max_peaks)
+            return results
+
+        hm = _as_maps(heatmaps)
+        sup = None if suppressed is None else torch.as_tensor(suppressed)
+        cap = max_peaks
+        for _ in range(_MAX_NMS_DOUBLINGS):
+            prev, cap = cap, cap * 2
+            logger.warning(
+                "NMS pick list hit the max_peaks cap (%d) on %d of %d map(s); "
+                "auto-retrying those maps with max_peaks=%d",
+                prev, todo.size, len(counts), cap,
+            )
+            idx = torch.as_tensor(todo, device=hm.device)
+            s2, c2, n2 = nms_batch_device(
+                hm.index_select(0, idx), radius, threshold, cap,
+                None if sup is None
+                else sup.index_select(0, idx.to(sup.device)),
+            )
+            s2, c2, n2 = s2.cpu().numpy(), c2.cpu().numpy(), n2.cpu().numpy()
+            for k, i in enumerate(todo):
+                results[i] = (s2[k, : n2[k]], c2[k, : n2[k]])
+            todo = todo[n2 >= cap]
+            if todo.size == 0:
+                return results
+        logger.warning(
+            "NMS pick list still hit the cap (%d) on %d map(s) after %d "
+            "automatic retries; picks beyond the cap were DROPPED — re-run "
+            "with a larger --max_peaks to get the full list",
+            cap, todo.size, _MAX_NMS_DOUBLINGS,
+        )
+        return results
 
 
 def nms_batch_to_host(heatmaps, radius: int, threshold: float = 0.02,

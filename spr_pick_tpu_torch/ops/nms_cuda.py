@@ -30,6 +30,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from spr_pick_tpu_torch.utils import profiling
+
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "nms.cu"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
@@ -105,8 +107,9 @@ class _Library:
         self._smem_optin = {}
         self.build_log = ""
 
-    def build(self) -> Path:
-        """Compile csrc/nms.cu unless a library of this exact source exists.
+    def build(self) -> Tuple[Path, bool]:
+        """Compile csrc/nms.cu unless a library of this exact source exists;
+        returns the library's path and whether nvcc ran.
 
         The file name carries the source's hash, so an edit rebuilds; the
         compiler writes a temporary file that is renamed into place, so
@@ -124,11 +127,14 @@ class _Library:
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {SOURCE}:\n{self.build_log}")
             os.replace(tmp, path)
-        return path
+            return path, True
+        return path, False
 
     def get(self):
         if self._lib is None:
-            lib = ctypes.CDLL(str(self.build()))
+            with profiling.span("spr.k1.load") as attrs:
+                path, attrs["built"] = self.build()
+                lib = ctypes.CDLL(str(path))
             ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             lib.spr_nms.argtypes = [ptr, i64, i64, ptr, i32, i32, i32, i32,
                                     i32, ctypes.c_float, i32, ptr, ptr, ptr,
