@@ -211,7 +211,14 @@ script then exits nonzero and prints no result):
      subprocesses side by side (three graphed chunks, validation at 0 and
      at the end): each exits 0, its `profile/trace.json` holds K1's and
      the convs' kernel records of the first print window, and its graph
-     replays after the trace was written.
+     replays after the trace was written;
+ 16. the MRC min-max quantise on the card
+     (`data/loader.py:minmax_quantize_device`) against the host decode
+     (`load_image`) bit for bit over the benchmark's pool of 16 1024^2
+     MRCs from two seeds, each alone and all 16 in one batch; the Picker's
+     path calls (`pick_many_table`, `denoise`) count `load.device_quantise`
+     once and hand the model the host decode's bits; and the times of the
+     host decode, the read alone and the card's quantise.
 
 The weights are random, made from a seed.  The detector's 1x1 classifier
 takes the absolute value of its random weights and a scale and bias fitted
@@ -2541,6 +2548,7 @@ def stitch_phase(Picker, paths, mic: str, nms_cuda, radius: int, gpu: str):
     micrograph (padded to 256x320), K1 on the stitch map, bf16 pick sets,
     and the two detectors' times and peak memory.  Returns (K1's launches
     in the stitch pick, K1's max_abs_err)."""
+    from spr_pick_tpu_torch.data.loader import load_image
     from spr_pick_tpu_torch.ops.dense_unet import dense_blindspot_unet
 
     tf32(False)
@@ -2598,7 +2606,7 @@ def stitch_phase(Picker, paths, mic: str, nms_cuda, radius: int, gpu: str):
     if launches < 1:
         raise AssertionError("the stitch pick never launched K1")
     check_picks(*picks, "stitch bf16 pick")
-    inp = torch.from_numpy(main_d._load(mic, False)[None, :, :, None]).to(
+    inp = torch.from_numpy(load_image(mic)[None, :, :, None]).to(
         main_d.device)
     model = main_d.denoiser.model
     with torch.inference_mode():
@@ -4268,6 +4276,87 @@ def profile_runs(paths10, tmp: str, gpu: str) -> None:
                              f"{PROFILE_RUNS} ran to the end")
 
 
+def device_quantise_phase(Picker, paths, tmp: str) -> None:
+    """16.  The MRC quantise on the card against the host decode."""
+    import spr_pick_tpu_torch.api as api
+    from gpubench import data as bench_data
+    from spr_pick_tpu_torch.data import mrc
+    from spr_pick_tpu_torch.data.loader import (load_image,
+                                               minmax_quantize_device)
+    from spr_pick_tpu_torch.utils import profiling
+
+    with open(os.path.join(REPO, "gpubench", "traffic", "pick1k.json")) as f:
+        mix = json.load(f)
+    files = []
+    for seed in (3160000001, 2 ** 31 + 16):
+        d = os.path.join(tmp, f"pool16_{seed}")
+        os.makedirs(d)
+        paths16 = bench_data.write_pool(bench_data.pool(seed, mix), d)
+        raw = np.stack([np.asarray(mrc.read(p)[0], np.float32)
+                        for p in paths16])
+        want = np.stack([load_image(p) for p in paths16]).view(np.uint32)
+        dev = torch.from_numpy(raw).cuda()
+        whole = minmax_quantize_device(dev).cpu().numpy().view(np.uint32)
+        alone = np.stack([minmax_quantize_device(dev[i:i + 1])[0].cpu().numpy()
+                          for i in range(len(paths16))]).view(np.uint32)
+        for label, got in (("in one batch", whole), ("one at a time", alone)):
+            bad = int((got != want).sum())
+            if bad:
+                raise AssertionError(f"card quantise {label}, seed {seed}: "
+                                     f"{bad} elements differ from the host")
+        log(f"device quantise seed {seed}: {len(paths16)} micrographs "
+            f"{raw.shape[1]}x{raw.shape[2]} == host decode bit for bit, "
+            f"alone and in one batch")
+        files += paths16
+
+    # The Picker's path calls: counted once, and the model's input is the
+    # host decode's, bit for bit.
+    picker = Picker(paths["main"])
+    seen = []
+
+    original = api.eval_step
+
+    def recording(den, batch, **kw):
+        seen.append(batch["inp"][0, :, :, 0].cpu().numpy())
+        return original(den, batch, **kw)
+
+    api.eval_step = recording
+    try:
+        for call in (lambda p: picker.pick_many_table([p]),
+                     lambda p: picker.denoise(p)):
+            for p in files[:2]:
+                before = profiling.counters().get("load.device_quantise", 0)
+                call(p)
+                rise = profiling.counters().get("load.device_quantise",
+                                                0) - before
+                if rise != 1 or not np.array_equal(
+                        seen[-1].view(np.uint32),
+                        load_image(p).view(np.uint32)):
+                    raise AssertionError(f"Picker path call on {p}: counter "
+                                         f"+{rise}, input != host decode")
+    finally:
+        api.eval_step = original
+    log("Picker pick_many_table/denoise of an MRC path: counted once, the "
+        "model's input == host decode bit for bit")
+
+    def file_ms(fn):
+        out = []
+        for p in files:
+            t0 = time.perf_counter()
+            fn(p)
+            out.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    one = torch.from_numpy(np.asarray(mrc.read(files[0])[0], np.float32)
+                           )[None, :, :, None].cuda()
+    steps = picker._u8_steps
+    log(f"host decode (load_image) of a 1024^2 MRC: "
+        f"{summary(file_ms(load_image))[0]}")
+    log(f"host read alone (mrc.read): {summary(file_ms(mrc.read))[0]}")
+    quantise = summary(cuda_ms(lambda: minmax_quantize_device(one, steps)))
+    log(f"card quantise of a 1024^2 micrograph: {quantise[0]}")
+
+
 def config_phase(Picker, img, paths10, long_run, tmp, nms_cuda, radius,
                  gpu) -> int:
     """Phase 15.  Returns K1's launches in the `var` pick."""
@@ -4577,6 +4666,11 @@ def main() -> int:
         launches_in_var_pick = config_phase(Picker, img, paths10, long_run,
                                             tmp, nms_cuda, radius, gpu)
         log(f"phase 15 took {time.perf_counter() - t0:.1f} s")
+
+        # 16. The MRC quantise on the card against the host decode.
+        t0 = time.perf_counter()
+        device_quantise_phase(Picker, paths, tmp)
+        log(f"phase 16 took {time.perf_counter() - t0:.1f} s")
 
     h, w = shape
     bound_ms, bound_by = k1_bound(h, w, k, count, radius)

@@ -20,6 +20,11 @@ PyTorch checkpoints (`compat.py`).
 Micrographs above 2048 px after padding take halo tiling
 (`parallel/tiling.py`, through the evaluator), as in the JAX package.
 
+An MRC path that takes no tiling and no ``standardize`` is read as its
+raw values and min-max quantised on the device, inside the forward
+(`data/loader.py:minmax_quantize_device`, bit for bit the host decode);
+every other input is decoded on the host (`load_image`).
+
 The Picker runs on the GPU: ``device=None`` resolves to ``cuda`` and raises
 when there is none; only an explicit ``device="cpu"`` runs on the CPU.
 ``pandas`` is imported only where a DataFrame is built, so `pick_arrays`,
@@ -35,8 +40,10 @@ from typing import Dict, Iterable, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from spr_pick_tpu_torch.data import mrc
 from spr_pick_tpu_torch.data import table as tbl
-from spr_pick_tpu_torch.data.loader import load_image
+from spr_pick_tpu_torch.data.loader import (U8_STEPS, load_image,
+                                           minmax_quantize_device)
 from spr_pick_tpu_torch.data.micrograph import pad_to_multiple, unpad
 from spr_pick_tpu_torch.eval import DenoiserEvaluator
 from spr_pick_tpu_torch.ops.nms import nms_batch_to_host, nms_to_host
@@ -46,6 +53,19 @@ from spr_pick_tpu_torch.utils import profiling
 
 ImageLike = Union[str, np.ndarray]
 Picks = Tuple[np.ndarray, np.ndarray]
+
+
+class _Raw:
+    """An MRC micrograph's values as float32, not yet min-max quantised:
+    `Picker._forward` quantises it on the device."""
+    __slots__ = ("values",)
+
+    def __init__(self, values: np.ndarray):
+        self.values = values
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return self.values.shape
 
 
 class Picker:
@@ -93,20 +113,25 @@ class Picker:
         )
         self.border = int(border)
         self.seed = int(seed)
+        self._u8_steps = torch.from_numpy(U8_STEPS).to(self.device)
 
     # ------------------------------------------------------------------
 
-    def _forward(self, arrs: List[np.ndarray]):
+    def _forward(self, arrs: List[Union[np.ndarray, _Raw]]):
         """One dense forward over same-shape micrographs, or halo tiling
         for one above the threshold; returns (outputs on the device,
         original shape).  On the device it returns before the forward
-        ends."""
+        ends.  `_Raw` micrographs are quantised on the device after the
+        upload (the reflection pad only copies pixels, so padding first
+        changes no bit)."""
         with profiling.span("spr.forward"):
             square = not self.denoiser.supports_rect_dense
+            raw = [i for i, a in enumerate(arrs) if isinstance(a, _Raw)]
             padded = []
             shape = None
             for a in arrs:
-                p, shape = pad_to_multiple(a, 32, square=square)
+                p, shape = pad_to_multiple(
+                    a.values if isinstance(a, _Raw) else a, 32, square=square)
                 padded.append(p)
             generator = torch.Generator(device=self.device).manual_seed(
                 self.seed)
@@ -119,6 +144,14 @@ class Picker:
                 return self._ev._evaluate_tiled(item, generator), shape
             inp = torch.from_numpy(np.stack(padded)[..., None])
             inp = inp.to(self.device)
+            # In place: the model sees the strides of the host path's input
+            # (a conv may pick its algorithm, and so its rounding, by them).
+            if len(raw) == len(arrs):
+                inp.copy_(minmax_quantize_device(inp, self._u8_steps))
+            elif raw:
+                inp[raw] = minmax_quantize_device(inp[raw], self._u8_steps)
+            if raw:
+                profiling.count("load.device_quantise", len(raw))
             return eval_step(self.denoiser, {"inp": inp},
                              generator=generator), shape
 
@@ -249,20 +282,38 @@ class Picker:
             if isinstance(image, str) else "image"
         )
 
-    def _load(self, image: ImageLike, standardize: bool) -> np.ndarray:
-        """A micrograph as float32 H,W: a path decoded, an array checked.
-        Its span counts the thread's minor page faults (``minflt``)."""
+    def _load(self, image: ImageLike, standardize: bool
+              ) -> Union[np.ndarray, _Raw]:
+        """A micrograph as float32 H,W: a path decoded, an array checked;
+        an MRC path that `_forward` may quantise on the device only read
+        (`_Raw`).  Its span counts the thread's minor page faults
+        (``minflt``)."""
         with profiling.span("spr.load") as attrs:
             faults = _minor_faults()
-            if isinstance(image, str):
+            img = None if standardize else self._read_raw(image)
+            if img is None and isinstance(image, str):
                 img = load_image(image, standardize=standardize)
-            else:
+            elif img is None:
                 img = np.ascontiguousarray(image, np.float32)
                 if img.ndim != 2:
                     raise ValueError(
                         f"expected a 2-D micrograph, got {img.shape}")
             attrs["minflt"] = _minor_faults() - faults
         return img
+
+    def _read_raw(self, image: ImageLike) -> Optional[_Raw]:
+        """The values of ``image`` if it is the path of a one-section MRC
+        whose frame takes no halo tiling (its header gives the shape),
+        read with one open of the file; else None."""
+        if not (isinstance(image, str)
+                and os.path.splitext(image)[1].lower() == ".mrc"):
+            return None
+        with profiling.span("spr.load.read"), open(image, "rb") as f:
+            nz, ny, nx = mrc.read_shape(f)
+            if nz != 1 or self._tiled((ny, nx)):
+                return None
+            array, _, _ = mrc.read(f)
+        return _Raw(np.asarray(array, dtype=np.float32))
 
     def denoise(self, image: ImageLike,
                 standardize: bool = False) -> np.ndarray:

@@ -8,7 +8,9 @@ normalisation is load-critical for pick parity:
         later divided by 255 on the way to the model.  The uint8
         quantisation is reproduced exactly with numpy (the JAX package's
         optional C++ quantiser is bit-identical to this path) and the result
-        is returned as float32 in [0,1].
+        is returned as float32 in [0,1].  `minmax_quantize_device` is the
+        same decode in torch ops, bit for bit, for the `Picker`'s MRC
+        micrographs on its device.
   PNG/JPEG: `unquantize` re-expands 8-bit to [-3, 3].
   TIFF: raw values (optionally standardised).
 
@@ -18,14 +20,18 @@ Images are plain numpy float32 H,W arrays.
 from __future__ import annotations
 
 import os
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 from spr_pick_tpu_torch.data import mrc
 from spr_pick_tpu_torch.utils import profiling
 
 IMAGE_EXTS = (".mrc", ".tiff", ".tif", ".png", ".jpg", ".jpeg")
+# u8 / 255 in float32 as numpy divides, for each u8: CUDA divides by a
+# scalar as a multiply by its reciprocal, which is not IEEE division.
+U8_STEPS = np.arange(256, dtype=np.uint8).astype(np.float32) / 255.0
 
 
 def unquantize(x: np.ndarray, mi=-3, ma=3, dtype=np.float32) -> np.ndarray:
@@ -47,6 +53,28 @@ def minmax_quantize_u8(image: np.ndarray) -> np.ndarray:
     else:
         norm = np.zeros_like(image)
     return (norm * 255).astype(np.uint8)
+
+
+def minmax_quantize_device(images: torch.Tensor,
+                           steps: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """`minmax_quantize_u8(image).astype(np.float32) / 255.0` of each
+    micrograph along dim 0 of a float32 tensor (B, H, W, ...), bit for bit,
+    on the tensor's device and without a sync.  ``steps``: `U8_STEPS` on
+    that device (made anew when None).
+
+    numpy's ``(image - lo) / (hi - lo)`` takes ``lo`` and ``hi`` as Python
+    floats, so it divides by their float64 difference rounded to float32;
+    here they stay device tensors, so that ``/`` is IEEE division.
+    """
+    dims = tuple(range(1, images.ndim))
+    lo = images.amin(dim=dims, keepdim=True)
+    hi = images.amax(dim=dims, keepdim=True)
+    span = (hi.double() - lo.double()).float()
+    norm = torch.where(hi > lo, (images - lo) / span, 0.0)
+    if steps is None:
+        steps = torch.from_numpy(U8_STEPS).to(images.device)
+    return steps[(norm * 255).to(torch.uint8).long()]
 
 
 def load_mrc(path: str, standardize: bool = False) -> np.ndarray:

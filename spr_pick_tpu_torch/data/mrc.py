@@ -2,7 +2,8 @@
 
 Parity: `spr_pick/utils/mrc.py:105-225` (hand-rolled header parse/write,
 modes 0/1/2/3/4/6/16).  Implemented with a numpy structured dtype over the
-1024-byte header instead of `struct` — same on-disk layout, zero-copy reads.
+1024-byte header instead of `struct` — same on-disk layout; `parse` views
+the bytes it is given, `read` reads the payload once into its array.
 
 The PyTorch port's copy of `spr_pick_tpu/data/mrc.py` (read, parse,
 `make_header`, write).
@@ -10,6 +11,7 @@ The PyTorch port's copy of `spr_pick_tpu/data/mrc.py` (read, parse,
 
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import numpy as np
@@ -53,29 +55,51 @@ MODE_TO_DTYPE = {
 }
 
 
-def parse(content: bytes) -> Tuple[np.ndarray, np.void, bytes]:
-    """Parse MRC bytes -> (array, header record, extended header bytes)."""
-    header = np.frombuffer(content[:1024], dtype=HEADER_DTYPE)[0]
-    extbytes = int(header["next"])
-    start = 1024 + extbytes
-    extended_header = content[1024:start]
-
+def _layout(head: bytes):
+    """The header record of an MRC file's first 1024 bytes, and its
+    payload's dtype, (nz, ny, nx) shape and byte offset."""
+    header = np.frombuffer(head, dtype=HEADER_DTYPE, count=1)[0]
     mode = int(header["mode"])
     if mode not in MODE_TO_DTYPE:
         raise ValueError(f"Unknown MRC dtype mode: {mode}")
-    dtype = MODE_TO_DTYPE[mode]
-
-    nx, ny, nz = int(header["nx"]), int(header["ny"]), int(header["nz"])
-    array = np.frombuffer(content[start:], dtype=dtype)[: nz * ny * nx]
-    array = array.reshape(nz, ny, nx)
-    if nz == 1:
-        array = array[0]
-    return array, header, extended_header
+    shape = (int(header["nz"]), int(header["ny"]), int(header["nx"]))
+    return header, MODE_TO_DTYPE[mode], shape, 1024 + int(header["next"])
 
 
-def read(path: str):
-    with open(path, "rb") as f:
-        return parse(f.read())
+def _sections(array: np.ndarray, shape) -> np.ndarray:
+    array = array.reshape(shape)
+    return array[0] if shape[0] == 1 else array
+
+
+def parse(content: bytes) -> Tuple[np.ndarray, np.void, bytes]:
+    """Parse MRC bytes -> (array, header record, extended header bytes).
+    The array is a read-only view of ``content``."""
+    header, dtype, shape, start = _layout(content)
+    array = np.frombuffer(content, dtype=dtype, count=int(np.prod(shape)),
+                          offset=start)
+    return _sections(array, shape), header, content[1024:start]
+
+
+def read(path) -> Tuple[np.ndarray, np.void, bytes]:
+    """`parse` of the file at ``path`` (or of an open binary file, from
+    its position); the payload is read once, straight into a writable
+    array."""
+    if isinstance(path, (str, os.PathLike)):
+        with open(path, "rb") as f:
+            return read(f)
+    header, dtype, shape, start = _layout(path.read(1024))
+    extended_header = path.read(start - 1024)
+    array = np.fromfile(path, dtype=dtype, count=int(np.prod(shape)))
+    return _sections(array, shape), header, extended_header
+
+
+def read_shape(f) -> Tuple[int, int, int]:
+    """The (nz, ny, nx) of the MRC file open in ``f`` at its header; ``f``
+    is left where it was."""
+    at = f.tell()
+    shape = _layout(f.read(1024))[2]
+    f.seek(at)
+    return shape
 
 
 def dtype_to_mode(dtype) -> int:
