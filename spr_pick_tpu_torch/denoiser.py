@@ -45,6 +45,7 @@ from spr_pick_tpu_torch.params import (
     Pipeline,
     PipelineOutput,
 )
+from spr_pick_tpu_torch.utils import profiling
 from spr_pick_tpu_torch.utils.device import resolve_device
 
 _DTYPES = {"bf16": torch.bfloat16, "f32": None, None: None}
@@ -278,13 +279,17 @@ class Denoiser:
         return out_stats, self.model.detector(z, dense=True)
 
     def _noise_estimate(self, noisy_in: torch.Tensor) -> Optional[torch.Tensor]:
-        """Raw noise estimate before softplus remap (const or var)."""
+        """Raw noise estimate before softplus remap (const or var).  The
+        var sigma net's forward and mean are span ``spr.sigma``, a device
+        annotation, and each forward adds one to counter ``sigma.calls``."""
         if self.noise_value == NoiseValue.UNKNOWN_CONSTANT:
             return self.l_params[ESTIMATED_SIGMA]
         if self.noise_value == NoiseValue.UNKNOWN_VARIABLE:
-            est = self.sigma_model(noisy_in)
-            # Per-image scalar: mean over H, W (denoiser_v2.py:390).
-            return torch.mean(est, dim=(1, 2), keepdim=True)
+            with profiling.span("spr.sigma", on_device=True):
+                profiling.count("sigma.calls")
+                est = self.sigma_model(noisy_in)
+                # Per-image scalar: mean over H, W (denoiser_v2.py:390).
+                return torch.mean(est, dim=(1, 2), keepdim=True)
         return None
 
     def _noise_std(self, noisy_in, mu_x, batch) -> torch.Tensor:

@@ -17,7 +17,11 @@ is also entered as a profiler range, so under any torch.profiler session
 (`Trace`, ``train start --profile`` or an operator's own) it is a CPU
 event on the clock of the device's events.  The range is a plain
 `RecordFunction`, not a user annotation, so the profiler adds no
-device-side event for it.
+device-side event for it.  A span opened with ``on_device=True`` is a
+user annotation instead (`torch.profiler.record_function`): the profiler
+then also records a device event of the span's name, from the start of
+the first kernel launched inside it to the end of the last, which a
+reader of the trace sums by name.
 """
 
 from __future__ import annotations
@@ -78,11 +82,13 @@ class SpanRecord(NamedTuple):
 
 
 class _Span:
-    __slots__ = ("rec", "name", "attrs", "span_id", "parent", "request",
-                 "start", "range")
+    __slots__ = ("rec", "name", "attrs", "on_device", "span_id", "parent",
+                 "request", "start", "range")
 
-    def __init__(self, rec: "Recorder", name: str, attrs: Dict):
+    def __init__(self, rec: "Recorder", name: str, attrs: Dict,
+                 on_device: bool = False):
         self.rec, self.name, self.attrs = rec, name, attrs
+        self.on_device = on_device
 
     def __enter__(self) -> Dict:
         stack = self.rec._stack()
@@ -92,8 +98,11 @@ class _Span:
         self.request = up.request if up else self.span_id
         stack.append(self)
         self.range = None
-        if _PROFILER_RANGE is not None:
+        if self.on_device:
+            self.range = torch.profiler.record_function(self.name)
+        elif _PROFILER_RANGE is not None:
             self.range = _PROFILER_RANGE(self.name)
+        if self.range is not None:
             self.range.__enter__()
         self.start = time.perf_counter_ns()
         return self.attrs
@@ -126,10 +135,12 @@ class Recorder:
             stack = self._local.stack = []
         return stack
 
-    def span(self, name: str, **attrs) -> _Span:
+    def span(self, name: str, on_device: bool = False, **attrs) -> _Span:
         """``with span(name, **attrs) as attrs:`` records the block; the
-        body may add attributes to ``attrs``."""
-        return _Span(self, name, attrs)
+        body may add attributes to ``attrs``.  ``on_device``: the range is
+        a user annotation, which a profiler session also records on the
+        device (the module's docstring)."""
+        return _Span(self, name, attrs, on_device)
 
     def count(self, name: str, n: int = 1) -> None:
         """Add ``n`` to counter ``name``, and to the attribute ``name`` of
