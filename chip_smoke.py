@@ -193,11 +193,12 @@ script then exits nonzero and prints no result):
      two (one process a card), else "not run: one card";
  15. what the card had not run: (a) each bf16 stage of a `var` joint
      model with every bias and BatchNorm statistic perturbed (the U-Net's
-     and the sigma U-Net's ShiftConvs, each op of each ResNet8 block, the
-     input BatchNorm, the classifier), dense and in train mode, fed the
-     same input on the card and on the CPU: the fraction of elements
-     apart and the largest distance in ulps, printed stage by stage; every
-     LeakyReLU fed the CPU's pre-activation must equal the CPU's bit for
+     and the sigma U-Net's conv steps: channels-last in the dense eval,
+     ShiftConvs in train mode with gradients on; each op of each ResNet8
+     block, the input BatchNorm, the classifier), fed the same input on
+     the card and on the CPU: the fraction of elements apart and the
+     largest distance in ulps, printed stage by stage; every LeakyReLU or
+     epilogue fed the CPU's pre-activation must equal the CPU's bit for
      bit; (b) 13c's bf16-against-float32 readings on the long run's
      weights, repaired path against the old slope planted; (c) a `var`
      `.wt` picked on the card against the CPU in float32 (equal pick sets,
@@ -218,7 +219,25 @@ script then exits nonzero and prints no result):
      MRCs from two seeds, each alone and all 16 in one batch; the Picker's
      path calls (`pick_many_table`, `denoise`) count `load.device_quantise`
      once and hand the model the host decode's bits; and the times of the
-     host decode, the read alone and the card's quantise.
+     host decode, the read alone and the card's quantise;
+ 17. the U-Net's conv step on the channels-last route: the epilogue kernel
+     (`csrc/conv_epilogue.cu`) against its plain version, against the
+     NCHW chain (bias add, LeakyReLU, `F.pad`) and fed the float32 bias,
+     bit for bit at the main path's shapes (the fold's 96 and 48 channels
+     with the blind-spot pad, the head's 384 at a 1x1 consumer, the sigma
+     net's symmetric pad, no activation), each timed beside its byte bound
+     and the NCHW chain; its launches in a 1024^2 `Picker.denoise` (19)
+     and a bf16 `var` model's `process_table` (32; the main pick's, 19,
+     in phase 3); then the whole rot4 fold and the sigma net at 1024^2
+     bf16, channels-last route against the NCHW route: the share of
+     outputs apart, the widest gap in bf16 ulps and the relative L2 gap,
+     gated at ROUTE_GAP_SHARE of the NCHW route's own bf16-against-float32
+     distance; the gap with no input widened; each conv step fed the NCHW
+     route's own input, its bits apart (the two convs' kernels where they
+     differ); both routes' times; no cuDNN layout kernel
+     (``nchwToNhwc``/``nhwcToNchw``) in a trace of either forward; and the
+     host's time in one fold, split by the route's functions, beside the
+     epilogue's ctypes launch, its wrapper and a PyTorch op.
 
 The weights are random, made from a seed.  The detector's 1x1 classifier
 takes the absolute value of its random weights and a scale and bias fitted
@@ -623,13 +642,22 @@ def planted_faults(path: str, mic: str, f32, bf) -> None:
 
     from spr_pick_tpu_torch.api import Picker
 
+    from spr_pick_tpu_torch.ops.conv_epilogue import NO_PAD
+
     def no_cast_head(unet, h):
         h = unet._conv("out_block_conv1", unet._conv("out_block_conv0", h))
         return unet.out_conv(h)
 
+    def no_cast_head_cl(unet, h):
+        h = unet._step_cl("out_block_conv0", h, NO_PAD)
+        y = unet._conv_cl("out_conv", unet._step_cl("out_block_conv1", h,
+                                                    NO_PAD))
+        return y + unet.out_conv.conv.bias.to(y.dtype)
+
     def head_without_cast(model):
         unet = model.denoise_branch
         unet.head = MethodType(no_cast_head, unet)
+        unet.head_cl = MethodType(no_cast_head_cl, unet)
 
     def unet_weights_e4m3(model):
         with torch.no_grad():
@@ -3729,15 +3757,21 @@ def perturb_(den, seed: int) -> None:
                     t.copy_(0.1 * r)
 
 
-def stage_records(den, run):
-    """(name, module, args, output) of every ShiftConv, ResNet block and
-    classifier that ``run()`` calls on the CPU, in call order."""
+def stage_records(den, run, grad: bool = False):
+    """(name, module, args, output) of every ShiftConv, channels-last conv
+    step (`BlindspotUNet._step_cl`: the module is the U-Net, the args
+    (conv name, padded input, pad)), ResNet block and classifier that
+    ``run()`` calls on the CPU, in call order; gradients on with
+    ``grad`` (as training runs, which takes the NCHW route)."""
+    from types import MethodType
+
     from spr_pick_tpu_torch.models.blindspot import ShiftConv
     from spr_pick_tpu_torch.models.joint import Detector
     from spr_pick_tpu_torch.models.resnet import (BasicConv2d,
                                                   LinearClassifier, ResidA)
+    from spr_pick_tpu_torch.models.unet import BlindspotUNet
 
-    recs, hooks = [], []
+    recs, hooks, steps = [], [], []
     groups = [("model", den.model)]
     if den.sigma_model is not None:
         groups.append(("sigma", den.sigma_model))
@@ -3748,12 +3782,22 @@ def stage_records(den, run):
                 hooks.append(m.register_forward_hook(
                     lambda mod, args, out, n=f"{prefix}.{name}":
                     recs.append((n, mod, args, out.detach()))))
+            if isinstance(m, BlindspotUNet):
+                def step(self, conv, xp, pad, n=f"{prefix}.{name}"):
+                    out = BlindspotUNet._step_cl(self, conv, xp, pad)
+                    recs.append((f"{n}.{conv}".replace("..", "."), self,
+                                 (conv, xp, pad), out))
+                    return out
+                m._step_cl = MethodType(step, m)
+                steps.append(m)
     try:
-        with torch.no_grad():
+        with torch.set_grad_enabled(grad):
             run()
     finally:
         for h in hooks:
             h.remove()
+        for m in steps:
+            del m._step_cl
     return recs
 
 
@@ -3818,10 +3862,13 @@ def bf16_stages_phase(gpu: str) -> None:
     import copy
 
     from spr_pick_tpu_torch.denoiser import Denoiser
-    from spr_pick_tpu_torch.models.blindspot import ShiftConv, leaky_relu
+    from spr_pick_tpu_torch.models.blindspot import (ShiftConv, _slope_in,
+                                                     leaky_relu)
     from spr_pick_tpu_torch.models.joint import Detector
     from spr_pick_tpu_torch.models.resnet import (BasicConv2d, ResidA,
                                                   batch_norm)
+    from spr_pick_tpu_torch.models.unet import BlindspotUNet
+    from spr_pick_tpu_torch.ops.conv_epilogue import conv_epilogue
 
     c = train_cfg("bf16", "var")
     cpu = Denoiser(c, device="cpu", fold_tta=True)
@@ -3852,14 +3899,46 @@ def bf16_stages_phase(gpu: str) -> None:
     for label, train, run in modes:
         cpu.train(train)
         card.train(train)
-        recs = stage_records(cpu, run)
+        recs = stage_records(cpu, run, grad=train)
         by_group = {}
         for name, mod, args, out in recs:
             m = card.model if name.startswith("model.") else card.sigma_model
-            sub = m.get_submodule(name.split(".", 1)[1])
+            if isinstance(mod, BlindspotUNet):
+                # A channels-last conv step: the card's step and epilogue
+                # fed the CPU's padded input and conv output.
+                path = name.split(".", 1)[1].rsplit(".", 1)[0]
+                sub = m if path == name.split(".", 1)[1] else \
+                    m.get_submodule(path)
+            else:
+                sub = m.get_submodule(name.split(".", 1)[1])
             if train:
                 sub = copy.deepcopy(sub)
             with torch.no_grad():
+                if isinstance(mod, BlindspotUNet):
+                    conv, xp, pad = args
+                    y = mod._conv_cl(conv, xp)
+                    bias = getattr(mod, conv).conv.bias.to(y.dtype)
+                    slope = _slope_in(0.1, torch.bfloat16)
+                    got = sub._step_cl(conv, xp.cuda(), pad)
+                    scale = conv_epilogue(y, torch.zeros_like(bias), pad)
+                    total += 1
+                    if torch.equal(
+                            conv_epilogue(y.cuda(), bias.cuda(), pad,
+                                          slope).cpu().view(torch.int16),
+                            conv_epilogue(y, bias, pad, slope).view(
+                                torch.int16)):
+                        exact += 1
+                    else:
+                        raise AssertionError(f"15a {label} {name}: the "
+                                             "epilogue on the card differs "
+                                             "from the CPU's")
+                    frac, worst = ulp_stats(got, out, scale)
+                    group = ("sigma U-Net" if name.startswith("sigma.")
+                             else "U-Net")
+                    short = name.rsplit(".", 1)[1]
+                    by_group.setdefault(group, []).append(
+                        f"{short} {frac:.2e}/{worst:g}")
+                    continue
                 if isinstance(mod, Detector):
                     # Its input BatchNorm (its blocks are stages of their
                     # own), computed in float32 and cast.
@@ -3908,9 +3987,11 @@ def bf16_stages_phase(gpu: str) -> None:
                 f"CPU's input; fraction of elements apart / largest distance "
                 f"in ulps, float32 outputs by relative L2): "
                 f"{'; '.join(items)} | {gpu}")
-    log(f"bf16 stages card vs CPU: LeakyReLU fed the CPU's bf16 "
-        f"pre-activation equal bit for bit in {exact} of {total} stages "
-        f"(gate: all) | {gpu}")
+    if not total:
+        raise AssertionError("15a recorded no U-Net stage")
+    log(f"bf16 stages card vs CPU: LeakyReLU (NCHW route) or the epilogue "
+        f"(channels-last route) fed the CPU's bf16 pre-activation equal bit "
+        f"for bit in {exact} of {total} stages (gate: all) | {gpu}")
 
 
 def old_bf16_slope(model) -> None:
@@ -3928,7 +4009,14 @@ def old_bf16_slope(model) -> None:
     def conv_old_slope(self, name, h):
         return F.leaky_relu(getattr(self, name)(h), 0.1)
 
+    def step_old_slope(self, name, xp, pad):
+        top, bottom, left, right = pad
+        bias = getattr(self, name).conv.bias.to(torch.bfloat16)
+        z = F.leaky_relu(self._conv_cl(name, xp) + bias, 0.1)
+        return F.pad(z, (0, 0, left, right, top, bottom))
+
     unet._conv = MethodType(conv_old_slope, unet)
+    unet._step_cl = MethodType(step_old_slope, unet)
 
 
 def bf16_shift_phase(Picker, run: str, paths10, tmp: str, gpu: str) -> None:
@@ -3968,9 +4056,9 @@ def bf16_shift_phase(Picker, run: str, paths10, tmp: str, gpu: str) -> None:
             f"{len(bf[0])} vs {len(f32[0])} picks; {bands} | {gpu}")
 
 
-def var_checkpoint(tmp: str, img: np.ndarray) -> str:
-    """A float32 joint `.wt` with the `var` sigma U-Net (seeded), the A
-    head zeroed and the classifier fitted sparse as in
+def var_checkpoint(tmp: str, img: np.ndarray, dtype: str = "f32") -> str:
+    """A joint `.wt` computing in ``dtype`` with the `var` sigma U-Net
+    (seeded), the A head zeroed and the classifier fitted sparse as in
     `make_checkpoints`."""
     from spr_pick_tpu_torch import cfg as cfg_mod
     from spr_pick_tpu_torch.denoiser import Denoiser
@@ -3982,7 +4070,7 @@ def var_checkpoint(tmp: str, img: np.ndarray) -> str:
     c[ConfigValue.ALGORITHM] = NoiseAlgorithm.SELFSUPERVISED_DENOISING
     c[ConfigValue.NOISE_STYLE] = "gauss"
     c[ConfigValue.NOISE_VALUE] = NoiseValue.UNKNOWN_VARIABLE
-    c[ConfigValue.COMPUTE_DTYPE] = "f32"
+    c[ConfigValue.COMPUTE_DTYPE] = dtype
     den = Denoiser(c, device="cuda")
     den.init_variables(seed=SEED)
     head = den.model.denoise_branch.out_conv.conv
@@ -3990,7 +4078,7 @@ def var_checkpoint(tmp: str, img: np.ndarray) -> str:
         head.weight[1:] = 0.0
         head.bias[1:] = 0.0
     sparse_classifier(den, img)
-    path = os.path.join(tmp, "var_f32.wt")
+    path = os.path.join(tmp, f"var_{dtype}.wt")
     ckpt.save_weights(path, *den.variables(), c, "joint")
     return path
 
@@ -4357,6 +4445,406 @@ def device_quantise_phase(Picker, paths, tmp: str) -> None:
     log(f"card quantise of a 1024^2 micrograph: {quantise[0]}")
 
 
+EPILOGUE_CASES = (
+    # (label, conv output (N, H, W, C), pad (top, bottom, left, right),
+    #  LeakyReLU): the main path's shapes at 1024^2.
+    ("fold 96ch, blind-spot pad", (4, 1024, 1024, 96), (2, 0, 1, 1), True),
+    ("fold 48ch, blind-spot pad", (4, 1024, 1024, 48), (2, 0, 1, 1), True),
+    ("head 384ch, 1x1 consumer", (1, 1024, 1024, 384), (0, 0, 0, 0), True),
+    ("sigma net 48ch, symmetric pad", (1, 1024, 1024, 48), (1, 1, 1, 1),
+     True),
+    ("sigma net 96ch, symmetric pad", (1, 1024, 1024, 96), (1, 1, 1, 1),
+     True),
+    ("96ch, blind-spot pad, no activation", (4, 1024, 1024, 96),
+     (2, 0, 1, 1), False),
+)
+HBM_BYTES_S = 3.35e12  # H100 SXM device memory, bytes/s
+
+
+def epilogue_input(shape, seed: int):
+    """A conv output and bias in bf16 with both signs, zeros of both
+    signs and values that round on the bias add."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    y = torch.randn(shape, device="cuda", generator=g).mul_(3).bfloat16()
+    y.view(-1)[:64] = 0.0
+    y.view(-1)[64:128] = -0.0
+    b = torch.randn(shape[-1], device="cuda", generator=g).bfloat16()
+    return y, b
+
+
+def old_chain(y, b, pad, act: bool):
+    """The NCHW route's chain on an NCHW conv output ``y``: `conv2d`'s
+    bf16 bias add, the LeakyReLU, the next `ShiftConv`'s `F.pad`; NHWC
+    out."""
+    import torch.nn.functional as F
+
+    from spr_pick_tpu_torch.models.blindspot import leaky_relu
+
+    top, bottom, left, right = pad
+    z = y.clone().add_(b[:, None, None])
+    if act:
+        z = leaky_relu(z)
+    if any(pad):
+        z = F.pad(z, (left, right, top, bottom))
+    return z.permute(0, 2, 3, 1)
+
+
+FOLD_LAUNCHES = (19, 20)   # epilogue launches, conv.fused of a rot4 fold
+PROCESS_LAUNCHES = (32, 34)  # a fold and a sigma-net forward (13, 14)
+# The channels-last route against the NCHW route at 1024^2, on seeded
+# random weights.  cuDNN picks another fprop kernel for 3 of the fold's 20
+# steps when their input is channels-last (enc1_conv0: a tensor-core
+# kernel for `implicit_convolve_sgemm`; dec1_conv0/conv1: tile 256x128x64
+# for 128x128x32), so those steps, fed the same input, round 7.1e-7 to
+# 1.35e-4 of their elements otherwise, and the later steps spread it: the
+# fold's outputs sit 0.534 of the NCHW route's own bf16-against-float32
+# distance from it (relative L2), the sigma net's 0 (H100, 2.11.0+cu128).
+# Gates: below ROUTE_GAP_SHARE of that distance (1.0 would be as far as
+# bf16 is from float32), and no step fed the NCHW route's input with more
+# than STEP_APART_MAX of its bits apart (a wrong pad, bias or weight
+# layout moves nearly all).
+ROUTE_GAP_SHARE = 0.75
+STEP_APART_MAX = 1e-3
+WIDENED = {"enc1_conv0": 8, "dec_final_conv0": 32}  # `_padded_cat` multiples
+
+
+def epilogue_launches(fn, want, label: str):
+    """``fn()``'s result and the epilogue's launches in it; raises unless
+    (launches, ``conv.fused``) is ``want`` and ``conv.plain`` is 0 (each
+    forward's last conv adds its bias in plain PyTorch)."""
+    from spr_pick_tpu_torch.ops import conv_epilogue as ce
+    from spr_pick_tpu_torch.utils import profiling
+
+    ce.conv_epilogue_cuda.launches = 0
+    before = profiling.counters()
+    out = fn()
+    torch.cuda.synchronize()
+    after = profiling.counters()
+    got = (ce.conv_epilogue_cuda.launches,
+           after.get("conv.fused", 0) - before.get("conv.fused", 0))
+    plain = after.get("conv.plain", 0) - before.get("conv.plain", 0)
+    if got != tuple(want) or plain:
+        raise AssertionError(f"{label}: epilogue launches, conv.fused "
+                             f"{got} (want {tuple(want)}), conv.plain "
+                             f"{plain}")
+    return out, got[0]
+
+
+def cuda_kernels(fn) -> list:
+    """The device kernels one call of ``fn`` ran, by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
+def old_route(net, x):
+    """The NCHW route of ``net``'s dense forward, whatever the predicate."""
+    xc = x.permute(0, 3, 1, 2)
+    h = net.rot4_fold(xc) if net.blindspot else net.backbone(xc)
+    return net.head(h).permute(0, 2, 3, 1)
+
+
+def new_route(net, x):
+    from spr_pick_tpu_torch.ops.dense_unet import dense_blindspot_unet
+
+    return dense_blindspot_unet(net, x) if net.blindspot else net(x)
+
+
+def step_gaps(net, x, gpu: str) -> list:
+    """Each conv step of the NCHW route's forward on ``x``, fed that
+    route's own input, against the channels-last step's conv (+ its bf16
+    bias) on the same input padded NHWC: the share of elements whose bits
+    differ, with the input widened as `_padded_cat` widens it and not.
+    Where a step differs, the device kernels of both convs are logged."""
+    import torch.nn.functional as F
+
+    from spr_pick_tpu_torch.models.blindspot import ShiftConv
+
+    names = {m: n for n, m in net.named_children()
+             if isinstance(m, ShiftConv)}
+    rows = []
+
+    def hook(mod, args, out):
+        name = names[mod]
+        half = mod.kernel_size // 2
+        top, bottom = (2 * half, 0) if mod.blindspot else (half, half)
+        xp = F.pad(args[0], (half, half, top, bottom)).to(torch.bfloat16)
+        nhwc = xp.permute(0, 2, 3, 1).contiguous()
+        want = out.permute(0, 2, 3, 1).contiguous().view(torch.int16)
+        bias = mod.conv.bias.to(torch.bfloat16)
+        row = [name]
+        for multiple in sorted({1, WIDENED.get(name, 1)}):
+            c = nhwc.shape[3]
+            buf = nhwc
+            if c % multiple:
+                buf = torch.cat([nhwc, nhwc.new_zeros(
+                    *nhwc.shape[:3], multiple - c % multiple)], 3)
+            got = (net._conv_cl(name, buf) + bias).contiguous()
+            apart = float((got.view(torch.int16) != want).float().mean())
+            row.append((buf.shape[3], apart))
+            if apart:
+                w = mod.conv.weight.to(torch.bfloat16)
+                old_k = [k.split("(")[0][-100:] for k in cuda_kernels(
+                    lambda: F.conv2d(xp, w))]
+                new_k = [k.split("(")[0][-100:] for k in cuda_kernels(
+                    lambda: net._conv_cl(name, buf))]
+                log(f"  {name} at {buf.shape[3]} input channels: "
+                    f"{apart:.3e} apart; NCHW conv kernels {old_k}; "
+                    f"channels-last conv kernels {new_k} | {gpu}")
+        rows.append(row)
+
+    handles = [m.register_forward_hook(hook) for m in names]
+    try:
+        old_route(net, x)
+    finally:
+        for h in handles:
+            h.remove()
+    return rows
+
+
+def host_breakdown(net, x, gpu: str) -> dict:
+    """The host's time in one channels-last fold at 1024^2 (enqueue only:
+    the card is synchronised between forwards, not timed), split by the
+    route's functions, and the launch cost of the epilogue through ctypes
+    beside its wrapper and a PyTorch op, a tiny tensor each."""
+    import spr_pick_tpu_torch.models.unet as unet_mod
+    from spr_pick_tpu_torch.ops import conv_epilogue as ce
+
+    acc = {}
+
+    def timed(key, fn):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                n, t = acc.get(key, (0, 0.0))
+                acc[key] = (n + 1, t + time.perf_counter() - t0)
+        return wrapper
+
+    patches = [(unet_mod, "_padded_cat"), (unet_mod, "conv_epilogue"),
+               (unet_mod, "_upsample_cl"), (unet_mod.BlindspotUNet,
+                                            "_conv_cl"),
+               (unet_mod.BlindspotUNet, "_pool_cl")]
+    saved = [(o, a, getattr(o, a)) for o, a in patches]
+    forwards, total = 10, 0.0
+    try:
+        for o, a, f in saved:
+            setattr(o, a, timed(a, f))
+        for i in range(forwards + 2):
+            if i == 2:
+                acc.clear()
+                total = 0.0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            new_route(net, x)
+            total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+    finally:
+        for o, a, f in saved:
+            setattr(o, a, f)
+    out = {"fold host ms": 1e3 * total / forwards}
+    for key, (n, t) in sorted(acc.items()):
+        out[f"{key} ms ({n // forwards} calls)"] = 1e3 * t / forwards
+    out["rest ms"] = out["fold host ms"] - sum(
+        1e3 * t / forwards for _, t in acc.values())
+
+    y = torch.zeros((1, 1, 8, 48), dtype=torch.bfloat16, device="cuda")
+    b = torch.zeros(48, device="cuda")
+    o = torch.empty_like(y)
+    lib = ce.library.get()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def raw():
+        lib.spr_conv_epilogue(y.data_ptr(), y.stride(0), y.stride(1),
+                              b.data_ptr(), o.data_ptr(), 1, 1, 8, 48, 0,
+                              0, 0, 0, 1, 0.1, stream)
+
+    def us(fn, n=2000):
+        t = 0.0
+        for _ in range(n // 200):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            t += time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return 1e6 * t / n
+
+    launches = ce.conv_epilogue_cuda.launches
+    out["ctypes launch us"] = us(raw)
+    out["epilogue wrapper us"] = us(
+        lambda: ce.conv_epilogue_cuda.epilogue(y, b, ce.NO_PAD, 0.1))
+    out["torch.add us"] = us(lambda: torch.add(y, 1))
+    ce.conv_epilogue_cuda.launches = launches
+    out["host launches, channels-last fold"] = host_launches(
+        lambda: new_route(net, x))
+    out["host launches, NCHW fold"] = host_launches(
+        lambda: old_route(net, x))
+    log("host, one channels-last fold 1024^2 (10 forwards): " + "; ".join(
+        f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+        for k, v in out.items()) + f" | {gpu}")
+    return out
+
+
+def conv_step_phase(gpu: str, Picker, paths, mic: str, img, tmp: str
+                    ) -> dict:
+    """17.  The conv step's epilogue and the channels-last route."""
+    import spr_pick_tpu_torch.models.unet as unet_mod
+    from spr_pick_tpu_torch.models.blindspot import _slope_in
+    from spr_pick_tpu_torch.models.unet import BlindspotUNet
+    from spr_pick_tpu_torch.ops import conv_epilogue as ce
+
+    t0 = time.perf_counter()
+    lib_path, built = ce.library.build()
+    log(f"conv epilogue build: {lib_path} ({'built' if built else 'cached'}) "
+        f"in {time.perf_counter() - t0:.1f} s")
+    for line in ce.library.build_log.splitlines():
+        if "registers" in line or "spill" in line or "Function" in line:
+            log(f"conv epilogue ptxas: {line.strip()}")
+
+    rows = {}
+    for i, (label, shape, pad, act) in enumerate(EPILOGUE_CASES):
+        y, b = epilogue_input(shape, SEED + 170 + i)
+        y_nchw = y.permute(0, 3, 1, 2).contiguous()  # the NCHW route's
+        slope = _slope_in(0.1, torch.bfloat16) if act else None
+        got = ce.conv_epilogue(y, b, pad, slope)
+        plain = ce.conv_epilogue_plain(y, b, pad, slope)
+        old = old_chain(y_nchw, b, pad, act)
+        # The program passes the layer's float32 bias: the same bits.
+        wide = ce.conv_epilogue(y, b.float(), pad, slope)
+        for name, want in (("plain", plain), ("the NCHW chain", old),
+                           ("a float32 bias", wide)):
+            if got.shape != want.shape or not torch.equal(
+                    got.view(torch.int16), want.contiguous().view(torch.int16)):
+                bad = int((got.view(torch.int16)
+                           != want.contiguous().view(torch.int16)).sum())
+                raise AssertionError(f"epilogue {label}: {bad} elements "
+                                     f"differ from {name}")
+        n_in, n_out = y.numel(), got.numel()
+        bound = 2 * (n_in + n_out) / HBM_BYTES_S * 1e3
+        text, med = summary(cuda_ms(lambda: ce.conv_epilogue(y, b, pad,
+                                                              slope)))
+        _, chain_med = summary(cuda_ms(lambda: old_chain(y_nchw, b, pad,
+                                                         act)))
+        _, plain_med = summary(cuda_ms(lambda: ce.conv_epilogue_plain(
+            y, b, pad, slope)))
+        rows[label] = (med, bound, plain_med, chain_med)
+        log(f"epilogue {label} {tuple(shape)} -> {tuple(got.shape)}: == plain "
+            f"and == the NCHW chain bit for bit; kernel {text}; bound "
+            f"{bound:.4f} ms ({100 * bound / med:.1f}% of it, bytes); plain "
+            f"version {plain_med:.4f} ms; the NCHW chain (add_, LeakyReLU, "
+            f"F.pad) {chain_med:.4f} ms | {gpu}")
+        del y, y_nchw, b, got, plain, old, wide
+
+    # The main paths through the Picker: the epilogue's launches a request.
+    picker = Picker(paths["main"])
+    _, denoise = epilogue_launches(lambda: picker.denoise(mic),
+                                   FOLD_LAUNCHES, "denoise")
+    var = Picker(var_checkpoint(tmp, img, "bf16"))
+    _, process = epilogue_launches(lambda: var.process_table(mic),
+                                   PROCESS_LAUNCHES, "process_table")
+    log(f"conv epilogue launches a 1024^2 request: denoise {denoise}, "
+        f"process_table of the bf16 var model {process} | {gpu}")
+    del picker, var
+
+    # The whole fold and the sigma net, the NCHW route against the
+    # channels-last route, on seeded weights with nonzero biases; a
+    # float32 twin of each gives the NCHW route's own bf16 distance.
+    g = torch.Generator().manual_seed(SEED + 17)
+    nets, twins = {}, {}
+    for name, kw in (("fold", dict(out_channels=2, blindspot=True)),
+                     ("sigma", dict(out_channels=1, blindspot=False,
+                                    levels=3))):
+        net = BlindspotUNet(1, dtype=torch.bfloat16, **kw)
+        net.reset_parameters(g)
+        with torch.no_grad():
+            for m in net.modules():
+                if hasattr(m, "bias") and m.bias is not None:
+                    m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=g))
+        nets[name] = net.cuda().eval()
+        twins[name] = BlindspotUNet(1, **kw)
+        twins[name].load_state_dict(net.state_dict())
+        twins[name].cuda().eval()
+    x = torch.rand((1, SIZE, SIZE, 1), generator=g).cuda()
+
+    def narrow(net):
+        """The channels-last route with no input widened."""
+        orig = unet_mod._padded_cat
+        unet_mod._padded_cat = lambda parts, pad, multiple=1: orig(parts,
+                                                                    pad)
+        try:
+            return new_route(net, x)
+        finally:
+            unet_mod._padded_cat = orig
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    out, total, gaps = {}, 0, {}
+    for name, net in nets.items():
+        want = FOLD_LAUNCHES if net.blindspot else (
+            PROCESS_LAUNCHES[0] - FOLD_LAUNCHES[0],
+            PROCESS_LAUNCHES[1] - FOLD_LAUNCHES[1])
+        with torch.inference_mode():
+            new, launches = epilogue_launches(lambda: new_route(net, x), want,
+                                              name)
+            old = old_route(net, x)
+            tf32(False)
+            want32 = old_route(twins[name], x)
+            tf32(True)
+            frac, worst = ulp_stats(new.bfloat16(), old.bfloat16())
+            gap, bf16 = rel(new, old), rel(old, want32)
+            unwidened = rel(narrow(net), old)
+            steps = step_gaps(net, x, gpu)
+            new_ms = summary(cuda_ms(lambda: new_route(net, x)))
+            old_ms = summary(cuda_ms(lambda: old_route(net, x)))
+            layout = sorted(k for k in cuda_kernels(lambda: new_route(net, x))
+                            if "nchwToNhwc" in k or "nhwcToNchw" in k)
+            names = cuda_kernels(lambda: new_route(net, x))
+        if layout:
+            raise AssertionError(f"{name}: layout kernels on the channels-"
+                                 f"last route: {layout}")
+        if not any("conv_epilogue_kernel" in n for n in names):
+            raise AssertionError(f"{name}: the trace shows no epilogue")
+        out[name] = (new_ms[1], old_ms[1])
+        gaps[name] = (gap, bf16, unwidened, steps)
+        total += launches
+        apart = ", ".join(
+            f"{r[0]} " + "/".join(f"{c}ch {a:.2e}" for c, a in r[1:])
+            for r in steps if any(a for _, a in r[1:]))
+        log(f"{name} 1024^2 bf16, channels-last route against the NCHW "
+            f"route: {frac:.2e} of outputs differ, at most {worst:.2f} bf16 "
+            f"ulps; relative L2 {gap:.3e} = {gap / bf16:.4f} of the NCHW "
+            f"route's bf16-vs-float32 {bf16:.3e} (gate {ROUTE_GAP_SHARE}); "
+            f"with no input widened {unwidened:.3e}; conv steps fed the NCHW "
+            f"route's input, share of bits apart (gate {STEP_APART_MAX}; "
+            f"widened/unwidened): "
+            f"{apart or 'none'} of {len(steps)} steps; epilogue launches "
+            f"{launches}; no nchwToNhwc/nhwcToNchw kernel in its trace; "
+            f"channels-last {new_ms[0]}; NCHW {old_ms[0]} | {gpu}")
+    with torch.inference_mode():
+        host = host_breakdown(nets["fold"], x, gpu)
+    for name, (gap, bf16, _, steps) in gaps.items():
+        worst = max((a, r[0], c) for r in steps for c, a in r[1:])
+        if worst[0] > STEP_APART_MAX:
+            raise AssertionError(f"{name}: {worst[1]} at {worst[2]} input "
+                                 f"channels, fed the NCHW route's input, has "
+                                 f"{worst[0]:.3e} of its bits apart from it "
+                                 f"(gate {STEP_APART_MAX})")
+        if gap > ROUTE_GAP_SHARE * bf16:
+            raise AssertionError(f"{name}: the channels-last route is "
+                                 f"{gap:.3e} from the NCHW route, above "
+                                 f"{ROUTE_GAP_SHARE} of its bf16 distance "
+                                 f"{bf16:.3e}")
+    return {"rows": rows, "nets": out, "launches": total, "host": host,
+            "denoise": denoise, "process": process}
+
+
 def config_phase(Picker, img, paths10, long_run, tmp, nms_cuda, radius,
                  gpu) -> int:
     """Phase 15.  Returns K1's launches in the `var` pick."""
@@ -4432,13 +4920,15 @@ def main() -> int:
         if picker.nms_radius != radius:
             raise AssertionError(f"cfg NMS radius {picker.nms_radius}")
         nms_cuda.greedy_nms_cuda.launches = 0
-        scores, coords, shape = picker.pick_arrays(mic)
+        (scores, coords, shape), epilogue_pick = epilogue_launches(
+            lambda: picker.pick_arrays(mic), FOLD_LAUNCHES, "main pick")
         launches = nms_cuda.greedy_nms_cuda.launches
         if launches < 1:
             raise AssertionError("the main path never launched K1")
         check_picks(scores, coords, shape, "main path bf16")
         log(f"main path bf16 {SIZE}^2: {len(scores)} picks, top score "
-            f"{scores[0]:.4f}, K1 launches {launches}")
+            f"{scores[0]:.4f}, K1 launches {launches}, conv epilogue "
+            f"launches {epilogue_pick}")
 
         # 4. float32 on the card against the CPU; bf16 against float32.
         torch.backends.cudnn.allow_tf32 = False
@@ -4672,6 +5162,11 @@ def main() -> int:
         device_quantise_phase(Picker, paths, tmp)
         log(f"phase 16 took {time.perf_counter() - t0:.1f} s")
 
+        # 17. The conv step's epilogue and the channels-last route.
+        t0 = time.perf_counter()
+        conv17 = conv_step_phase(gpu, Picker, paths, mic, img, tmp)
+        log(f"phase 17 took {time.perf_counter() - t0:.1f} s")
+
     h, w = shape
     bound_ms, bound_by = k1_bound(h, w, k, count, radius)
     big_bound_ms, big_bound_by = k1_bound(*BIG_SHAPE, BIG_CAP, count_big,
@@ -4705,6 +5200,22 @@ def main() -> int:
         "launches_in_host_plane_training": launches_in_host_plane,
         "launches_in_long_training": launches_in_long_run,
         "launches_in_var_pick": launches_in_var_pick,
+    }, {
+        "name": "conv epilogue",
+        "route": "cuda",
+        "source": "spr_pick_tpu_torch/csrc/conv_epilogue.cu",
+        "replaces": None,  # XLA fused this glue into the conv on the TPU
+        "launches": conv17["launches"],
+        "launches_in_pick": epilogue_pick,
+        "launches_in_denoise": conv17["denoise"],
+        "launches_in_process_table": conv17["process"],
+        "shape": "conv output (4, 1024, 1024, 96), blind-spot pad",
+        "ms": conv17["rows"][EPILOGUE_CASES[0][0]][0],
+        "bound_ms": conv17["rows"][EPILOGUE_CASES[0][0]][1],
+        "bound_by": "bytes",
+        "plain_ms": conv17["rows"][EPILOGUE_CASES[0][0]][2],
+        "nchw_chain_ms": conv17["rows"][EPILOGUE_CASES[0][0]][3],
+        "launch_us_ctypes": conv17["host"]["ctypes launch us"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,18 +22,32 @@ shift-down, on a stack of already-rotated lanes) and `head` (the 1x1
 chain), so the dense folds of `ops/dense_unet.py` reuse the same layers.
 Submodule names follow the flax parameter tree, so ``state_dict`` keys are
 the flax paths (`weights.py`).
+
+Two routes run the same layers.  An inference forward in bf16 (gradients
+off: `steps.eval_step`, the `Picker`, validation passes) takes the
+channels-last route (`backbone_cl`, `head_cl`): every activation is NHWC;
+each conv step is one cuDNN conv (VALID) on an already padded bf16 buffer
+and one epilogue (`ops/conv_epilogue.py`: bias, LeakyReLU and the next
+conv's zero pad in one pass), with the same two bf16 roundings as the
+other route; the last conv (96 -> out) adds its bias in plain PyTorch.
+Everything else, training (autograd) and float32, takes the NCHW route of
+`ShiftConv` (pad, conv, bias add, LeakyReLU) unchanged.  An inference
+forward adds its conv steps to counter ``conv.fused`` (the channels-last
+route: one epilogue launch a step but the last conv's) or ``conv.plain``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from spr_pick_tpu_torch.models.blindspot import (
     KAIMING_LINEAR,
     ShiftConv,
+    _slope_in,
     leaky_relu,
     max_pool_2x2,
     rot4_stack,
@@ -41,6 +55,8 @@ from spr_pick_tpu_torch.models.blindspot import (
     shift_down,
     upsample_nearest_2x,
 )
+from spr_pick_tpu_torch.ops.conv_epilogue import NO_PAD, Pad, conv_epilogue
+from spr_pick_tpu_torch.utils import profiling
 
 ENC_FEATURES = 48  # encoder width, every level
 DEC_FEATURES = 96  # decoder width, every stage
@@ -80,6 +96,12 @@ class BlindspotUNet(nn.Module):
         conv("out_block_conv0", nin, nin, 1)
         conv("out_block_conv1", nin, dec, 1)
         conv("out_conv", dec, out_channels, 1, init_scale=KAIMING_LINEAR)
+        self.head_steps = 3
+        self.backbone_steps = sum(
+            isinstance(m, ShiftConv) for m in self.children()
+        ) - self.head_steps
+        # The pad of a 3x3 conv's input, (top, bottom, left, right).
+        self.pad3 = (2, 0, 1, 1) if blindspot else (1, 1, 1, 1)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Seeded init: kaiming-normal convs (linear for out_conv),
@@ -137,9 +159,135 @@ class BlindspotUNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W, in) -> (B, H, W, out) float32."""
-        x = x.permute(0, 3, 1, 2)
-        if self.blindspot:
-            h = self.rot4_fold(x)
+        fused = self.fused_route()
+        if fused:
+            h = self.rot4_fold_cl(x) if self.blindspot else self.backbone_cl(x)
+            out = self.head_cl(h)
         else:
-            h = self.backbone(x)
-        return self.head(h).permute(0, 2, 3, 1)
+            xc = x.permute(0, 3, 1, 2)
+            h = self.rot4_fold(xc) if self.blindspot else self.backbone(xc)
+            out = self.head(h).permute(0, 2, 3, 1)
+        self.count_steps(fused, 1)
+        return out
+
+    # ------------------------------------------------------------------
+    # The channels-last route
+    # ------------------------------------------------------------------
+
+    def fused_route(self) -> bool:
+        """Whether this forward takes the channels-last route: gradients
+        off and the compute dtype bf16.  Training keeps the NCHW route,
+        whose backward autograd derives."""
+        return self.dtype == torch.bfloat16 and not torch.is_grad_enabled()
+
+    def count_steps(self, fused: bool, backbones: int) -> None:
+        """Counters ``conv.fused`` and ``conv.plain`` of an inference
+        forward that ran the backbone ``backbones`` times and the head
+        once; a forward with gradients counts nothing."""
+        if torch.is_grad_enabled():
+            return
+        steps = backbones * self.backbone_steps + self.head_steps
+        profiling.count("conv.fused", steps if fused else 0)
+        profiling.count("conv.plain", 0 if fused else steps)
+
+    def _conv_cl(self, name: str, xp: torch.Tensor) -> torch.Tensor:
+        """Conv ``name`` (VALID, bf16, no bias) of the padded NHWC buffer
+        ``xp``: cuDNN reads and writes channels-last, NHWC out."""
+        w = getattr(self, name).conv.weight
+        if w.shape[1] < xp.shape[3]:
+            # Zero input channels (`_padded_cat`'s), zero weights.
+            w = F.pad(w, (0, 0, 0, 0, 0, xp.shape[3] - w.shape[1]))
+        # The cast and the re-layout in one copy.
+        w = w.to(torch.bfloat16, memory_format=torch.channels_last)
+        return F.conv2d(xp.permute(0, 3, 1, 2), w).permute(0, 2, 3, 1)
+
+    def _step_cl(self, name: str, xp: torch.Tensor, pad: Pad) -> torch.Tensor:
+        """One conv step: `_conv_cl`, then the epilogue, which writes the
+        input of the step that consumes it, padded by ``pad`` (the epilogue
+        rounds the float32 bias to bf16 itself)."""
+        return conv_epilogue(self._conv_cl(name, xp),
+                             getattr(self, name).conv.bias, pad,
+                             _slope_in(0.1, torch.bfloat16))
+
+    def _pool_cl(self, h: torch.Tensor) -> torch.Tensor:
+        if self.blindspot:
+            h = shift_down(h, 1, h_dim=1)
+        return F.max_pool2d(h.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+
+    def backbone_cl(self, x: torch.Tensor) -> torch.Tensor:
+        """`backbone` on the channels-last route: NHWC lanes (any float
+        dtype) in, NHWC bf16 out."""
+        p3 = self.pad3
+        skips = []
+        # Widths a tensor-core conv of cuDNN reads without a pass of its
+        # own (measured on the H100 at 1024^2): one input channel is
+        # carried as 8 (zeros), 96 + 1 as 128; the weights get zeros too.
+        h = self._step_cl("enc1_conv0", _padded_cat([x], p3, multiple=8), p3)
+        h = self._pool_cl(self._step_cl("enc1_conv1", h, NO_PAD))
+        skips.append(h)
+        for i in range(2, self.levels + 1):
+            h = self._step_cl(f"enc{i}_conv0", _padded_cat([h], p3), NO_PAD)
+            h = self._pool_cl(h)
+            skips.append(h)
+        h = self._step_cl("enc_bottom_conv0", _padded_cat([h], p3), NO_PAD)
+
+        h = _upsample_cl(h)
+        for stage, skip in enumerate(reversed(skips[:-1])):
+            h = self._step_cl(f"dec{stage}_conv0",
+                              _padded_cat([h, skip], p3), p3)
+            h = _upsample_cl(self._step_cl(f"dec{stage}_conv1", h, NO_PAD))
+        h = self._step_cl("dec_final_conv0",
+                          _padded_cat([h, x], p3, multiple=32), p3)
+        h = self._step_cl("dec_final_conv1", h, NO_PAD)
+        if self.blindspot:
+            h = shift_down(h, 1, h_dim=1)
+        return h
+
+    def rot4_fold_cl(self, x: torch.Tensor) -> torch.Tensor:
+        """`rot4_fold` on the channels-last route: NHWC (B, H, W, in) in,
+        (B, H, W, 4 * 96) bf16 out."""
+        return rot4_unstack(self.backbone_cl(rot4_stack(x)))
+
+    def head_cl(self, h: torch.Tensor) -> torch.Tensor:
+        """`head` on the channels-last route: NHWC in, NHWC float32 out.
+        The last conv (96 -> out) adds its bf16 bias in plain PyTorch, as
+        `conv2d` does: a pass over out channels only."""
+        h = self._step_cl("out_block_conv0", h, NO_PAD)
+        h = self._step_cl("out_block_conv1", h, NO_PAD)
+        bias = self.out_conv.conv.bias.to(torch.bfloat16)
+        return (self._conv_cl("out_conv", h) + bias).float()
+
+
+def _padded_cat(parts: List[torch.Tensor], pad: Pad,
+                multiple: int = 1) -> torch.Tensor:
+    """The channel concatenation of NHWC ``parts``, cast to bf16, inside a
+    zero pad of ``pad``: the input buffer of a conv fed by a pool, an
+    upsample or a skip rather than by an epilogue.  Only the border is
+    zero-filled; ``multiple``: zero channels after the parts up to a
+    multiple of it."""
+    n, h, w = parts[0].shape[:3]
+    c = sum(p.shape[3] for p in parts)
+    cp = -(-c // multiple) * multiple
+    top, bottom, left, right = pad
+    buf = torch.empty((n, h + top + bottom, w + left + right, cp),
+                      dtype=torch.bfloat16, device=parts[0].device)
+    buf[:, :top].zero_()
+    buf[:, top + h:].zero_()
+    inner = buf[:, top:top + h]
+    inner[:, :, :left].zero_()
+    inner[:, :, left + w:].zero_()
+    inner = inner[:, :, left:left + w]
+    inner[..., c:].zero_()
+    at = 0
+    for p in parts:
+        inner[..., at:at + p.shape[3]].copy_(p)
+        at += p.shape[3]
+    return buf
+
+
+def _upsample_cl(h: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour 2x upsample of NHWC ``h``, NHWC out (exact: each
+    pixel copied)."""
+    n, hh, ww, c = h.shape
+    return h[:, :, None, :, None, :].expand(n, hh, 2, ww, 2, c).reshape(
+        n, 2 * hh, 2 * ww, c)

@@ -13,7 +13,9 @@ Square inputs take the reference's rot4 batch fold (B -> 4B), the same
 `BlindspotUNet.rot4_fold` the module's own forward runs.  Rectangular
 inputs (H != W) take a two-lane fold: rot0/180 as one (2B, H, W) batch and
 rot90/270 as a (2B, W, H) batch, un-rotated and channel-concatenated in the
-order (0, 90, 180, 270).
+order (0, 90, 180, 270).  Both folds run on the module's route
+(`BlindspotUNet.fused_route`): NHWC on the channels-last route, NCHW on
+the other.
 """
 
 from __future__ import annotations
@@ -32,20 +34,30 @@ def dense_blindspot_unet(unet: BlindspotUNet, x: torch.Tensor,
     input through the two-lane fold (test hook: the folds must agree)."""
     if not unet.blindspot:
         raise ValueError("dense_blindspot_unet needs a blind-spot U-Net")
-    x = x.permute(0, 3, 1, 2)
-    h_dim, w_dim = 2, 3
+    fused = unet.fused_route()
+    if fused:
+        fold, backbone = unet.rot4_fold_cl, unet.backbone_cl
+        head = unet.head_cl
+        h_dim, w_dim, c_dim = 1, 2, 3
+    else:
+        x = x.permute(0, 3, 1, 2)
+        fold, backbone, head = unet.rot4_fold, unet.backbone, unet.head
+        h_dim, w_dim, c_dim = 2, 3, 1
     if x.shape[h_dim] == x.shape[w_dim] and not force_rect:
-        cat = unet.rot4_fold(x)
+        cat, backbones = fold(x), 1
     else:
         lane_hw = torch.cat([x, rotate(x, 180, h_dim, w_dim)], dim=0)
         lane_wh = torch.cat(
             [rotate(x, 90, h_dim, w_dim), rotate(x, 270, h_dim, w_dim)], dim=0
         )
-        c0, c180 = torch.chunk(unet.backbone(lane_hw), 2, dim=0)
-        c90, c270 = torch.chunk(unet.backbone(lane_wh), 2, dim=0)
+        c0, c180 = torch.chunk(backbone(lane_hw), 2, dim=0)
+        c90, c270 = torch.chunk(backbone(lane_wh), 2, dim=0)
         cat = torch.cat(
             [c0, rotate(c90, 270, h_dim, w_dim),
              rotate(c180, 180, h_dim, w_dim), rotate(c270, 90, h_dim, w_dim)],
-            dim=1,
+            dim=c_dim,
         )
-    return unet.head(cat).permute(0, 2, 3, 1)
+        backbones = 2
+    out = head(cat)
+    unet.count_steps(fused, backbones)
+    return out if fused else out.permute(0, 2, 3, 1)

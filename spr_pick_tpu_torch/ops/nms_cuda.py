@@ -1,10 +1,8 @@
 """K1: exact greedy NMS — the CUDA kernel's wrapper and its plain version.
 
 Replaces `spr_pick_tpu/ops/nms_pallas.py` (the JAX package's only Pallas
-kernel).  The kernel is `spr_pick_tpu_torch/csrc/nms.cu`, compiled with
-``nvcc`` for ``sm_90a`` into a shared library with a plain C interface at
-first use, into ``build/torch_kernels/`` beside the package (listed in
-.gitignore), and loaded with ctypes.
+kernel).  The kernel is `spr_pick_tpu_torch/csrc/nms.cu`, built at first use and
+loaded with ctypes (`ops/cuda_build.py`).
 
 `greedy_nms` is the entry point: a CUDA tensor launches the kernel (one
 call for the whole (B, H, W) batch: a pre-pass over (map, tile) that writes
@@ -20,23 +18,14 @@ works on a contiguous copy, seeded with -inf at ``suppressed`` pixels.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from spr_pick_tpu_torch.utils import profiling
+from spr_pick_tpu_torch.ops.cuda_build import PKG, CudaLibrary
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "nms.cu"
-BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+SOURCE = PKG / "csrc" / "nms.cu"
 # Tile edges the kernel is built for; `tile_edge` takes the smallest that fits.
 TILE_EDGES = (32, 64, 128, 256)
 _KEY_BYTES = 8
@@ -91,61 +80,23 @@ def tile_edge(h: int, w: int, radius: int, smem_optin: int) -> int:
     )
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(found):
-        raise RuntimeError("nvcc not found: K1 is built from csrc/nms.cu at "
-                           "first use and needs the CUDA toolkit")
-    return found
-
-
-class _Library:
-    """The built kernel library; compiled and loaded on first use."""
+class _Library(CudaLibrary):
+    """K1's library; its load is span ``spr.k1.load``."""
 
     def __init__(self):
-        self._lib = None
+        super().__init__(SOURCE, "libspr_nms", "spr.k1.load")
         self._smem_optin = {}
-        self.build_log = ""
 
-    def build(self) -> Tuple[Path, bool]:
-        """Compile csrc/nms.cu unless a library of this exact source exists;
-        returns the library's path and whether nvcc ran.
-
-        The file name carries the source's hash, so an edit rebuilds; the
-        compiler writes a temporary file that is renamed into place, so
-        concurrent builds never load a half-written library."""
-        digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-        path = BUILD_DIR / f"libspr_nms_{digest}.so"
-        if not path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                capture_output=True, text=True,
-            )
-            self.build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {SOURCE}:\n{self.build_log}")
-            os.replace(tmp, path)
-            return path, True
-        return path, False
-
-    def get(self):
-        if self._lib is None:
-            with profiling.span("spr.k1.load") as attrs:
-                path, attrs["built"] = self.build()
-                lib = ctypes.CDLL(str(path))
-            ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.spr_nms.argtypes = [ptr, i64, i64, ptr, i32, i32, i32, i32,
-                                    i32, ctypes.c_float, i32, ptr, ptr, ptr,
-                                    ptr, ptr, ptr]
-            lib.spr_nms.restype = i32
-            lib.spr_nms_smem_optin.argtypes = [i32]
-            lib.spr_nms_smem_optin.restype = i32
-            lib.spr_cuda_error_string.argtypes = [i32]
-            lib.spr_cuda_error_string.restype = ctypes.c_char_p
-            self._lib = lib
-        return self._lib
+    def declare(self, lib: ctypes.CDLL) -> None:
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.spr_nms.argtypes = [ptr, i64, i64, ptr, i32, i32, i32, i32,
+                                i32, ctypes.c_float, i32, ptr, ptr, ptr,
+                                ptr, ptr, ptr]
+        lib.spr_nms.restype = i32
+        lib.spr_nms_smem_optin.argtypes = [i32]
+        lib.spr_nms_smem_optin.restype = i32
+        lib.spr_cuda_error_string.argtypes = [i32]
+        lib.spr_cuda_error_string.restype = ctypes.c_char_p
 
     def smem_optin(self, device_index: int) -> int:
         """Shared memory a block may opt in to on this device, in bytes."""
