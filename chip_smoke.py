@@ -748,8 +748,17 @@ def full_frame(shape, seed: int) -> np.ndarray:
 
 
 def set_knobs(picker, knobs) -> None:
-    ev = picker._ev
+    ev = picker.evaluator
     ev.tile_eval_threshold, ev.tile_eval_size, ev.tile_eval_halo = knobs
+
+
+def forward(picker, images):
+    """(outputs on the device, the first micrograph's shape) of one dense
+    forward of the Picker's evaluator over ``images``, its noise drawn as
+    a request's is: from a generator freshly seeded with the Picker's
+    seed."""
+    generator = torch.Generator(device=picker.device).manual_seed(picker.seed)
+    return picker.evaluator.forward(images, generator), images[0].shape
 
 
 def tiled_card_vs_cpu(Picker, path: str) -> None:
@@ -761,7 +770,7 @@ def tiled_card_vs_cpu(Picker, path: str) -> None:
         picker = Picker(path, border=0, device=device)
         set_knobs(picker, LOWERED_KNOBS)
         got[device] = picker.pick_arrays(img)
-        if not picker._tiled(got[device][2]):
+        if not picker.evaluator.tiled(got[device][2]):
             raise AssertionError("phase 6 did not take the tiled route")
     torch.backends.cudnn.allow_tf32 = True
     card, cpu = got[None], got["cpu"]
@@ -796,8 +805,8 @@ def full_frame_phase(Picker, path: str, frame: str, nms_cuda, radius: int):
     from spr_pick_tpu_torch.ops.algorithms import find_contamination
 
     picker = Picker(path)
-    if (picker._ev.tile_eval_threshold, picker._ev.tile_eval_size,
-            picker._ev.tile_eval_halo) != PRODUCTION_KNOBS:
+    if (picker.evaluator.tile_eval_threshold, picker.evaluator.tile_eval_size,
+            picker.evaluator.tile_eval_halo) != PRODUCTION_KNOBS:
         raise AssertionError("the Picker's tiling knobs are not production's")
     cap = picker.max_peaks
     nms_cuda.greedy_nms_cuda.launches = 0
@@ -822,7 +831,7 @@ def full_frame_phase(Picker, path: str, frame: str, nms_cuda, radius: int):
         "the same picks")
 
     img = load_image(frame)
-    outputs, _ = picker._forward([img])
+    outputs, _ = forward(picker, [img])
     hm = picker._heatmaps(outputs, shape)
     got = nms_cuda.greedy_nms_cuda(hm, radius, THRESHOLD, BIG_CAP)
     want = nms_cuda.greedy_nms_plain(hm, radius, THRESHOLD, BIG_CAP)
@@ -842,7 +851,7 @@ def full_frame_phase(Picker, path: str, frame: str, nms_cuda, radius: int):
     hm = hm.clone()
     del outputs
 
-    ev = picker._ev
+    ev = picker.evaluator
     ev.tile_eval_halo = "auto"
     t0 = time.perf_counter()
     halo = ev._calibrated_halo(
@@ -856,9 +865,9 @@ def full_frame_phase(Picker, path: str, frame: str, nms_cuda, radius: int):
     ev.tile_eval_halo = PRODUCTION_KNOBS[2]
 
     crop = np.ascontiguousarray(img[:2048, :2048])
-    direct, _ = picker._forward([crop])
+    direct, _ = forward(picker, [crop])
     ev.tile_eval_threshold = 1024  # the same crop through 2x2 windows
-    tiled, _ = picker._forward([crop])
+    tiled, _ = forward(picker, [crop])
     ev.tile_eval_threshold = PRODUCTION_KNOBS[0]
     hd = picker._heatmaps(direct, (2048, 2048))[0]
     ht = picker._heatmaps(tiled, (2048, 2048))[0]
@@ -970,6 +979,7 @@ def commands_phase(Picker, path: str, mics: dict, tmp: str, nms_cuda,
     `eval --exclude_contam` seeds it with.  Returns K1's max_abs_err and
     the eval command's run dir."""
     from spr_pick_tpu_torch.data import mrc
+    from spr_pick_tpu_torch.data import table as tbl
     from spr_pick_tpu_torch.ops.algorithms import find_contamination
     from spr_pick_tpu_torch.ops.nms import nms_to_host
 
@@ -995,15 +1005,16 @@ def commands_phase(Picker, path: str, mics: dict, tmp: str, nms_cuda,
     picker = Picker(path)
     want, want_contam, dens, maps, masks = {}, {}, {}, {}, {}
     for name, p in mics.items():
-        outputs, shape = picker._forward([picker._load(p, False)])
+        outputs, shape = forward(picker, [picker._load(p, False)])
         dens[name] = picker._denoised(outputs, shape)
         maps[name] = picker._heatmaps(outputs, shape).clone()
         masks[name] = find_contamination(dens[name]).astype(bool)
-        want[name] = rows(picker._picks_table(
-            name, *picker._nms(maps[name][0]), shape))
-        want_contam[name] = rows(picker._picks_table(name, *nms_to_host(
+        want[name] = rows(tbl.picks(
+            name, *picker._nms(maps[name][0]), shape, picker.border))
+        want_contam[name] = rows(tbl.picks(name, *nms_to_host(
             maps[name][0], picker.nms_radius, threshold=picker.threshold,
-            max_peaks=picker.max_peaks, suppressed=masks[name]), shape))
+            max_peaks=picker.max_peaks, suppressed=masks[name]), shape,
+            picker.border))
         del outputs
     err = 0.0
     for name in mics:
@@ -1067,12 +1078,22 @@ class TiledTimer:
     its NMS, for one pick at a time."""
 
     def __init__(self, picker):
+        from spr_pick_tpu_torch.parallel import tiling
+
         self.spans = {"forward": [], "tiled": [], "k1": []}
-        ev = picker._ev
-        for name, owner, attr in (("forward", ev, "_forward"),
-                                  ("tiled", ev, "_evaluate_tiled"),
-                                  ("k1", picker, "_nms")):
-            setattr(owner, attr, self._wrap(name, getattr(owner, attr)))
+        ev = picker.evaluator
+        ev.evaluate_tiled = self._wrap("tiled", ev.evaluate_tiled)
+        picker._nms = self._wrap("k1", picker._nms)
+        # The window forwards: the apply functions the tiled pass hands to
+        # `tiled_dense_apply` (a caller restores the module's function).
+        apply = tiling.tiled_dense_apply
+
+        def timed_apply(fns, *args, **kwargs):
+            fns = [fns] if callable(fns) else fns
+            return apply([self._wrap("forward", f) for f in fns], *args,
+                         **kwargs)
+
+        tiling.tiled_dense_apply = timed_apply
 
     def _wrap(self, name, fn):
         def timed(*args):
@@ -1964,7 +1985,7 @@ def denoise_picker_card_vs_cpu(Picker, runs, tmp: str) -> dict:
     err["ssdn posterior mean max |diff|"] = float(np.abs(got - want).max())
     keys = (PO.IMG_MU, PO.MODEL_STD_DEV, PO.NOISE_STD_DEV, PO.IMG_DENOISED)
     net_card, net_cpu = ({k: outs[k][0, :, :, 0].float().cpu() for k in keys}
-                         for outs in (p._forward([mic])[0] for p in (card, cpu)))
+                         for outs in (forward(p, [mic])[0] for p in (card, cpu)))
     for k, name in ((PO.IMG_MU, "mu"), (PO.MODEL_STD_DEV, "model s.d.")):
         err[f"ssdn {name} rel L2"] = rel_l2(net_card[k].numpy(),
                                             net_cpu[k].numpy())
@@ -1978,7 +1999,7 @@ def denoise_picker_card_vs_cpu(Picker, runs, tmp: str) -> dict:
         for t in card.denoiser.model.parameters():
             up = torch.randint(0, 2, t.shape, generator=g, device="cuda") > 0
             t.copy_(torch.nextafter(t, torch.where(up, np.inf, -np.inf)))
-    moved = card._forward([mic])[0]
+    moved = forward(card, [mic])[0]
     err["ssdn one-ulp weight move: mu rel L2"] = rel_l2(
         moved[PO.IMG_MU][0, :, :, 0].cpu().numpy(),
         net_card[PO.IMG_MU].numpy())
@@ -2171,7 +2192,7 @@ def reference_phase(tmp: str, paths, mic: str, Picker, nms_cuda,
         raise AssertionError(f"reference .wt picks {len(got[0])} differ from "
                              f"the port .wt's {len(want[0])}")
     check_picks(*got, "reference .wt")
-    outputs, shape = picker._forward([picker._load(mic, False)])
+    outputs, shape = forward(picker, [picker._load(mic, False)])
     hm = picker._heatmaps(outputs, shape)
     k1 = nms_cuda.greedy_nms_cuda(hm, radius, THRESHOLD, picker.max_peaks)
     plain = nms_cuda.greedy_nms_plain(hm, radius, THRESHOLD, picker.max_peaks)
@@ -2566,7 +2587,7 @@ def stitch_picker(Picker, path: str, **kw):
 
 def forward_map(picker, image):
     """(heatmap (h, w) on the device, shape) of one dense forward."""
-    outputs, shape = picker._forward([picker._load(image, False)])
+    outputs, shape = forward(picker, [picker._load(image, False)])
     return picker._heatmaps(outputs, shape)[0], shape
 
 
@@ -2933,7 +2954,7 @@ def classifier_is_float32(picker, img) -> bool:
     hook = cls.register_forward_hook(
         lambda mod, args, out: seen.append((args[0], out)))
     try:
-        picker._forward([img])
+        forward(picker, [img])
     finally:
         hook.remove()
     conv = cls.classifier
@@ -3030,16 +3051,16 @@ def trained_gates(Picker, run: str, paths10, tmp: str) -> None:
             ("A head zeroed", zero_a_weights(wt, tmp), (STAR_THRESHOLD, low)),
             ("noise drawn", wt, ())):
         picker = Picker(weights_path)
-        ev = picker._ev
+        ev = picker.evaluator
         if (ev.tile_eval_threshold, ev.tile_eval_size,
                 ev.tile_eval_halo) != PRODUCTION_KNOBS:
             raise AssertionError("the Picker's tiling knobs are not "
                                  "production's")
-        direct, shape = picker._forward([img])
+        direct, shape = forward(picker, [img])
         ev.tile_eval_threshold = SIZE  # the same micrograph in 2x2 windows
-        if not picker._tiled(shape):
+        if not picker.evaluator.tiled(shape):
             raise AssertionError("the 2048^2 micrograph did not tile")
-        tiled, _ = picker._forward([img])
+        tiled, _ = forward(picker, [img])
         ev.tile_eval_threshold = PRODUCTION_KNOBS[0]
         hd = picker._heatmaps(direct, shape)[0]
         ht = picker._heatmaps(tiled, shape)[0]
@@ -3056,7 +3077,7 @@ def trained_gates(Picker, run: str, paths10, tmp: str) -> None:
         band(pt_, pd_, shape, f"{label}, tiled vs direct", gated)
         if not gated:
             picker.seed += 1
-            other = picker._nms(picker._heatmaps(picker._forward([img])[0],
+            other = picker._nms(picker._heatmaps(forward(picker, [img])[0],
                                                  shape)[0])
             band(other, pd_, shape, f"{label}, direct under another noise "
                  "seed vs direct", ())
@@ -4366,10 +4387,10 @@ def profile_runs(paths10, tmp: str, gpu: str) -> None:
 
 def device_quantise_phase(Picker, paths, tmp: str) -> None:
     """16.  The MRC quantise on the card against the host decode."""
-    import spr_pick_tpu_torch.api as api
+    import spr_pick_tpu_torch.eval as ev_mod
     from gpubench import data as bench_data
     from spr_pick_tpu_torch.data import mrc
-    from spr_pick_tpu_torch.data.loader import (load_image,
+    from spr_pick_tpu_torch.data.loader import (U8_STEPS, load_image,
                                                minmax_quantize_device)
     from spr_pick_tpu_torch.utils import profiling
 
@@ -4402,13 +4423,13 @@ def device_quantise_phase(Picker, paths, tmp: str) -> None:
     picker = Picker(paths["main"])
     seen = []
 
-    original = api.eval_step
+    original = ev_mod.eval_step
 
     def recording(den, batch, **kw):
         seen.append(batch["inp"][0, :, :, 0].cpu().numpy())
         return original(den, batch, **kw)
 
-    api.eval_step = recording
+    ev_mod.eval_step = recording
     try:
         for call in (lambda p: picker.pick_many_table([p]),
                      lambda p: picker.denoise(p)):
@@ -4423,7 +4444,7 @@ def device_quantise_phase(Picker, paths, tmp: str) -> None:
                     raise AssertionError(f"Picker path call on {p}: counter "
                                          f"+{rise}, input != host decode")
     finally:
-        api.eval_step = original
+        ev_mod.eval_step = original
     log("Picker pick_many_table/denoise of an MRC path: counted once, the "
         "model's input == host decode bit for bit")
 
@@ -4437,7 +4458,7 @@ def device_quantise_phase(Picker, paths, tmp: str) -> None:
 
     one = torch.from_numpy(np.asarray(mrc.read(files[0])[0], np.float32)
                            )[None, :, :, None].cuda()
-    steps = picker._u8_steps
+    steps = torch.from_numpy(U8_STEPS).cuda()
     log(f"host decode (load_image) of a 1024^2 MRC: "
         f"{summary(file_ms(load_image))[0]}")
     log(f"host read alone (mrc.read): {summary(file_ms(mrc.read))[0]}")

@@ -17,13 +17,15 @@ greedy NMS (K1), the same 30 px border filter and x/y column order as
 package load directly (`utils/checkpoint.py`), and so do the reference's
 PyTorch checkpoints (`compat.py`).
 
-Micrographs above 2048 px after padding take halo tiling
-(`parallel/tiling.py`, through the evaluator), as in the JAX package.
+The dense inference loop is the evaluator's (`eval.py`: `groups`,
+`forward`): micrographs above 2048 px after padding take halo tiling
+(`parallel/tiling.py`), as in the JAX package.
 
-An MRC path that takes no tiling and no ``standardize`` is read as its
-raw values and min-max quantised on the device, inside the forward
-(`data/loader.py:minmax_quantize_device`, bit for bit the host decode);
-every other input is decoded on the host (`load_image`).
+A one-section MRC path without ``standardize`` is read as its raw values
+and min-max quantised on the device inside that forward, a tiled frame
+before its windows are cut (`data/loader.py:minmax_quantize_device`, bit
+for bit the host decode); arrays, ``standardize`` and other formats are
+decoded on the host (`load_image`).
 
 The Picker runs on the GPU: ``device=None`` resolves to ``cuda`` and raises
 when there is none; only an explicit ``device="cpu"`` runs on the CPU.
@@ -35,37 +37,21 @@ from __future__ import annotations
 
 import os
 import resource
-from typing import Dict, Iterable, List, Optional, Tuple, Union
+from typing import Dict, Iterable, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from spr_pick_tpu_torch.data import mrc
 from spr_pick_tpu_torch.data import table as tbl
-from spr_pick_tpu_torch.data.loader import (U8_STEPS, load_image,
-                                           minmax_quantize_device)
-from spr_pick_tpu_torch.data.micrograph import pad_to_multiple, unpad
+from spr_pick_tpu_torch.data.loader import Raw, load_image, read_raw
+from spr_pick_tpu_torch.data.micrograph import unpad
 from spr_pick_tpu_torch.eval import DenoiserEvaluator
-from spr_pick_tpu_torch.ops.nms import nms_batch_to_host, nms_to_host
+from spr_pick_tpu_torch.ops.nms import nms_to_host
 from spr_pick_tpu_torch.params import ConfigValue, PipelineOutput
-from spr_pick_tpu_torch.steps import eval_step
 from spr_pick_tpu_torch.utils import profiling
 
 ImageLike = Union[str, np.ndarray]
 Picks = Tuple[np.ndarray, np.ndarray]
-
-
-class _Raw:
-    """An MRC micrograph's values as float32, not yet min-max quantised:
-    `Picker._forward` quantises it on the device."""
-    __slots__ = ("values",)
-
-    def __init__(self, values: np.ndarray):
-        self.values = values
-
-    @property
-    def shape(self) -> Tuple[int, int]:
-        return self.values.shape
 
 
 class Picker:
@@ -75,12 +61,13 @@ class Picker:
     ``nms_radius`` defaults to the checkpoint cfg's NMS value,
     ``threshold`` to the product's 0.02 heatmap floor, ``max_peaks`` to the
     cfg's, ``border`` to the evaluator's 30 px frame (pass 0 to keep edge
-    picks).  ``seed`` seeds the reparameterisation noise: each call draws
-    it from one generator seeded with ``seed``, so repeated calls give the
-    same result.
+    picks).  ``seed`` seeds the reparameterisation noise: each forward
+    draws it from a generator freshly seeded with ``seed``, so repeated
+    calls give the same result.
 
-    Micrographs above the evaluator's ``tile_eval_threshold`` (2048 px
-    after padding) take its halo tiling (``self._ev.tile_eval_size``,
+    The dense forward is the evaluator's (``self.evaluator``: `groups`,
+    `forward`).  Micrographs above its ``tile_eval_threshold`` (2048 px
+    after padding) take its halo tiling (``tile_eval_size``,
     ``tile_eval_halo``, as in the JAX package), and the stitched heatmap
     goes to the NMS kernel in one call.  ``devices`` (several cards, the
     first one the Picker's device) deals such a frame's windows over
@@ -95,14 +82,14 @@ class Picker:
                  nms_radius: Optional[int] = None, threshold: float = 0.02,
                  max_peaks: Optional[int] = None, border: int = 30,
                  seed: int = 0, device=None, devices=None):
-        # The evaluator owns checkpoint loading and the tiled route; no run
-        # dir is created unless evaluate() is called.
+        # The evaluator owns checkpoint loading and the dense inference
+        # loop; no run dir is created unless evaluate() is called.
         with profiling.span("spr.open"):
-            self._ev = DenoiserEvaluator(checkpoint, mode=mode, device=device,
-                                         devices=devices)
-        self.device = self._ev.device
-        self.denoiser = self._ev.denoiser
-        cfg = self._ev.cfg
+            self.evaluator = DenoiserEvaluator(checkpoint, mode=mode,
+                                               device=device, devices=devices)
+        self.device = self.evaluator.device
+        self.denoiser = self.evaluator.denoiser
+        cfg = self.evaluator.cfg
         self.nms_radius = int(
             nms_radius if nms_radius is not None else cfg[ConfigValue.NMS]
         )
@@ -113,52 +100,14 @@ class Picker:
         )
         self.border = int(border)
         self.seed = int(seed)
-        self._u8_steps = torch.from_numpy(U8_STEPS).to(self.device)
 
     # ------------------------------------------------------------------
 
-    def _forward(self, arrs: List[Union[np.ndarray, _Raw]]):
-        """One dense forward over same-shape micrographs, or halo tiling
-        for one above the threshold; returns (outputs on the device,
-        original shape).  On the device it returns before the forward
-        ends.  `_Raw` micrographs are quantised on the device after the
-        upload (the reflection pad only copies pixels, so padding first
-        changes no bit)."""
-        with profiling.span("spr.forward"):
-            square = not self.denoiser.supports_rect_dense
-            raw = [i for i, a in enumerate(arrs) if isinstance(a, _Raw)]
-            padded = []
-            shape = None
-            for a in arrs:
-                p, shape = pad_to_multiple(
-                    a.values if isinstance(a, _Raw) else a, 32, square=square)
-                padded.append(p)
-            generator = torch.Generator(device=self.device).manual_seed(
-                self.seed)
-            if self._tiled(shape):
-                if len(padded) != 1:
-                    raise ValueError(
-                        "halo tiling takes one micrograph at a time")
-                item = {"inp": padded[0][None, :, :, None],
-                        "image_shape": shape}
-                return self._ev._evaluate_tiled(item, generator), shape
-            inp = torch.from_numpy(np.stack(padded)[..., None])
-            inp = inp.to(self.device)
-            # In place: the model sees the strides of the host path's input
-            # (a conv may pick its algorithm, and so its rounding, by them).
-            if len(raw) == len(arrs):
-                inp.copy_(minmax_quantize_device(inp, self._u8_steps))
-            elif raw:
-                inp[raw] = minmax_quantize_device(inp[raw], self._u8_steps)
-            if raw:
-                profiling.count("load.device_quantise", len(raw))
-            return eval_step(self.denoiser, {"inp": inp},
-                             generator=generator), shape
-
-    def _tiled(self, shape) -> bool:
-        """Whether a micrograph of ``shape`` takes halo tiling: its edge
-        after the pad to 32 (square or not) is above the threshold."""
-        return max(-(-n // 32) * 32 for n in shape) > self._ev.tile_eval_threshold
+    def _forward(self, images: List[Union[np.ndarray, Raw]]) -> Dict:
+        """The evaluator's forward over a group, its noise from a generator
+        freshly seeded with ``seed``."""
+        return self.evaluator.forward(
+            images, torch.Generator(device=self.device).manual_seed(self.seed))
 
     @staticmethod
     def _heatmaps(outputs: Dict, shape) -> torch.Tensor:
@@ -172,20 +121,37 @@ class Picker:
         return outputs[PipelineOutput.DETECT][:, : shape[0], : shape[1], 0]
 
     def _nms(self, heatmap: torch.Tensor) -> Picks:
+        """K1 on one (h, w) map, what a group of one takes (`nms_to_host`:
+        the batched call on a batch of one); `gpubench`'s control test
+        alters picks here."""
         return nms_to_host(heatmap, self.nms_radius, threshold=self.threshold,
                            max_peaks=self.max_peaks)
 
-    def _pick_loaded(self, img: np.ndarray):
-        outputs, shape = self._forward([img])
-        scores, coords = self._nms(self._heatmaps(outputs, shape)[0])
-        return scores, coords, shape
+    def _picks(self, images: List[ImageLike], standardize: bool,
+               batch_size: int = 1) -> Iterator[Tuple[int, Picks, Tuple]]:
+        """(index, (scores, coords as (x, y) in NMS order), original shape)
+        of each micrograph: one forward a same-shape group, and K1 in one
+        call over a group's maps."""
+        groups = self.evaluator.groups(
+            lambda i: self._load(images[i], standardize), len(images),
+            batch_size)
+        for start, group in groups:
+            shape = group[0].shape
+            maps = self._heatmaps(self._forward(group), shape)
+            picks = ([self._nms(maps[0])] if len(group) == 1
+                     else self.evaluator.picks(maps, self.nms_radius,
+                                               self.threshold, self.max_peaks))
+            for j, p in enumerate(picks):
+                yield start + j, p, shape
 
     def pick_arrays(self, image: ImageLike, standardize: bool = False
                     ) -> Tuple[np.ndarray, np.ndarray, Tuple[int, int]]:
         """Pick one micrograph without pandas -> (scores, coords as (x, y)
         in NMS order, original shape): what `pick` turns into its frame."""
         with profiling.span("spr.request", micrographs=1):
-            return self._pick_loaded(self._load(image, standardize))
+            ((_, (scores, coords), shape),) = self._picks([image],
+                                                          standardize)
+            return scores, coords, shape
 
     def pick(self, image: ImageLike, name: Optional[str] = None,
              standardize: bool = False):
@@ -194,22 +160,6 @@ class Picker:
         evaluator's _scores.txt semantics (incl. x/y column order)."""
         return tbl.to_frame(self.pick_many_table([image], standardize,
                                                  names=[name]))
-
-    def _picks_table(self, name, scores, coords, shape) -> tbl.Table:
-        """Border-filter + column mapping (train.py:write_scores:
-        x = coords[:, 1])."""
-        b = self.border
-        x_max, y_max = shape[0] - b, shape[1] - b
-        keep = (
-            (coords[:, 1] > b) & (coords[:, 1] < x_max)
-            & (coords[:, 0] > b) & (coords[:, 0] < y_max)
-        ) if b > 0 else np.ones(len(scores), bool)
-        return {
-            "image_name": np.array([name] * int(keep.sum()), dtype=object),
-            "x_coord": coords[keep, 1].astype(np.int64),
-            "y_coord": coords[keep, 0].astype(np.int64),
-            "score": scores[keep],
-        }
 
     def pick_many(self, images: Iterable[ImageLike],
                   standardize: bool = False, batch_size: int = 1,
@@ -239,41 +189,10 @@ class Picker:
         names = [self._name_for(im) if nm is None else nm
                  for im, nm in zip(images, names)]
         with profiling.span("spr.request", micrographs=len(images)):
-            tables = []
-            i = 0
-            carried = None  # shape-mismatched load carried to the next group
-            while i < len(images):
-                first = carried if carried is not None else self._load(
-                    images[i], standardize
-                )
-                carried = None
-                group, arrs = [names[i]], [first]
-                while len(group) < batch_size and i + len(group) < len(images):
-                    nxt = self._load(images[i + len(group)], standardize)
-                    if nxt.shape != first.shape:
-                        carried = nxt  # don't decode it twice
-                        break
-                    group.append(names[i + len(group)])
-                    arrs.append(nxt)
-                tables.extend(self._pick_group(group, arrs))
-                i += len(group)
-            return tbl.concat(tables)
-
-    def _pick_group(self, names, arrs):
-        """One dense forward + one batched NMS over a same-shape group;
-        giant micrographs take halo tiling one at a time."""
-        if len(arrs) == 1 or self._tiled(arrs[0].shape):
-            return [self._picks_table(nm, *self._pick_loaded(a))
-                    for nm, a in zip(names, arrs)]
-        outputs, shape = self._forward(arrs)
-        picks = nms_batch_to_host(
-            self._heatmaps(outputs, shape), self.nms_radius,
-            threshold=self.threshold, max_peaks=self.max_peaks,
-        )
-        return [
-            self._picks_table(name, scores, coords, shape)
-            for name, (scores, coords) in zip(names, picks)
-        ]
+            return tbl.concat([
+                tbl.picks(names[i], *picks, shape, self.border)
+                for i, picks, shape in self._picks(images, standardize,
+                                                   batch_size)])
 
     @staticmethod
     def _name_for(image: ImageLike) -> str:
@@ -283,14 +202,14 @@ class Picker:
         )
 
     def _load(self, image: ImageLike, standardize: bool
-              ) -> Union[np.ndarray, _Raw]:
-        """A micrograph as float32 H,W: a path decoded, an array checked;
-        an MRC path that `_forward` may quantise on the device only read
-        (`_Raw`).  Its span counts the thread's minor page faults
-        (``minflt``)."""
+              ) -> Union[np.ndarray, Raw]:
+        """A micrograph as float32 H,W: a path decoded, an array checked; a
+        one-section MRC path without ``standardize`` only read (`Raw`), for
+        the forward to quantise on the device.  Its span counts the
+        thread's minor page faults (``minflt``)."""
         with profiling.span("spr.load") as attrs:
             faults = _minor_faults()
-            img = None if standardize else self._read_raw(image)
+            img = None if standardize else read_raw(image)
             if img is None and isinstance(image, str):
                 img = load_image(image, standardize=standardize)
             elif img is None:
@@ -301,26 +220,12 @@ class Picker:
             attrs["minflt"] = _minor_faults() - faults
         return img
 
-    def _read_raw(self, image: ImageLike) -> Optional[_Raw]:
-        """The values of ``image`` if it is the path of a one-section MRC
-        whose frame takes no halo tiling (its header gives the shape),
-        read with one open of the file; else None."""
-        if not (isinstance(image, str)
-                and os.path.splitext(image)[1].lower() == ".mrc"):
-            return None
-        with profiling.span("spr.load.read"), open(image, "rb") as f:
-            nz, ny, nx = mrc.read_shape(f)
-            if nz != 1 or self._tiled((ny, nx)):
-                return None
-            array, _, _ = mrc.read(f)
-        return _Raw(np.asarray(array, dtype=np.float32))
-
     def denoise(self, image: ImageLike,
                 standardize: bool = False) -> np.ndarray:
         """Denoise one micrograph -> float32 H,W (original shape)."""
         with profiling.span("spr.request", micrographs=1):
-            outputs, shape = self._forward([self._load(image, standardize)])
-            return self._denoised(outputs, shape)
+            img = self._load(image, standardize)
+            return self._denoised(self._forward([img]), img.shape)
 
     def process(self, image: ImageLike, name: Optional[str] = None,
                 standardize: bool = False):
@@ -336,12 +241,14 @@ class Picker:
         if name is None:
             name = self._name_for(image)
         with profiling.span("spr.request", micrographs=1):
-            outputs, shape = self._forward([self._load(image, standardize)])
-            den = self._denoised(outputs, shape)
+            img = self._load(image, standardize)
+            outputs = self._forward([img])
+            den = self._denoised(outputs, img.shape)
             if PipelineOutput.DETECT not in outputs:
                 return None, den
-            scores, coords = self._nms(self._heatmaps(outputs, shape)[0])
-            return self._picks_table(name, scores, coords, shape), den
+            scores, coords = self._nms(self._heatmaps(outputs, img.shape)[0])
+            return tbl.picks(name, scores, coords, img.shape,
+                             self.border), den
 
     @staticmethod
     def _denoised(outputs, shape) -> np.ndarray:

@@ -9,8 +9,9 @@ normalisation is load-critical for pick parity:
         quantisation is reproduced exactly with numpy (the JAX package's
         optional C++ quantiser is bit-identical to this path) and the result
         is returned as float32 in [0,1].  `minmax_quantize_device` is the
-        same decode in torch ops, bit for bit, for the `Picker`'s MRC
-        micrographs on its device.
+        same decode in torch ops, bit for bit: `read_raw` leaves a
+        one-section MRC `Raw`, and the evaluator's forward quantises it on
+        its device.
   PNG/JPEG: `unquantize` re-expands 8-bit to [-3, 3].
   TIFF: raw values (optionally standardised).
 
@@ -20,7 +21,7 @@ Images are plain numpy float32 H,W arrays.
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -75,6 +76,32 @@ def minmax_quantize_device(images: torch.Tensor,
     if steps is None:
         steps = torch.from_numpy(U8_STEPS).to(images.device)
     return steps[(norm * 255).to(torch.uint8).long()]
+
+
+class Raw:
+    """An MRC micrograph's values as float32, not yet min-max quantised:
+    `EvaluatorBase.forward` quantises it on its device."""
+    __slots__ = ("values",)
+
+    def __init__(self, values: np.ndarray):
+        self.values = values
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return self.values.shape
+
+
+def read_raw(image) -> Optional[Raw]:
+    """The values of ``image`` if it is the path of a one-section MRC,
+    read with one open of the file (span ``spr.load.read``); else None."""
+    if not (isinstance(image, str)
+            and os.path.splitext(image)[1].lower() == ".mrc"):
+        return None
+    with profiling.span("spr.load.read"):
+        array, _, _ = mrc.read(image)
+    if array.ndim != 2:
+        return None
+    return Raw(np.asarray(array, dtype=np.float32))
 
 
 def load_mrc(path: str, standardize: bool = False) -> np.ndarray:

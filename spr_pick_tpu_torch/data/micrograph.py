@@ -69,13 +69,19 @@ def pad_to_multiple(img: np.ndarray, multiple: int,
     (padded, original_shape).
     """
     h, w = img.shape[:2]
-    ph = (h + multiple - 1) // multiple * multiple
-    pw = (w + multiple - 1) // multiple * multiple
-    if square:
-        ph = pw = max(ph, pw)
+    ph, pw = padded_shape((h, w), multiple, square)
     if ph == h and pw == w:
         return img, (h, w)
     return _reflect_pad_trailing(img, ph - h, pw - w), (h, w)
+
+
+def padded_shape(shape, multiple: int, square: bool = False
+                 ) -> Tuple[int, int]:
+    """The (H, W) that `pad_to_multiple` pads a micrograph of ``shape`` to."""
+    ph, pw = (-(-n // multiple) * multiple for n in shape[:2])
+    if square:
+        ph = pw = max(ph, pw)
+    return ph, pw
 
 
 def _reflect_pad_trailing(img: np.ndarray, ph: int, pw: int) -> np.ndarray:

@@ -93,15 +93,6 @@ def read(path) -> Tuple[np.ndarray, np.void, bytes]:
     return _sections(array, shape), header, extended_header
 
 
-def read_shape(f) -> Tuple[int, int, int]:
-    """The (nz, ny, nx) of the MRC file open in ``f`` at its header; ``f``
-    is left where it was."""
-    at = f.tell()
-    shape = _layout(f.read(1024))[2]
-    f.seek(at)
-    return shape
-
-
 def dtype_to_mode(dtype) -> int:
     for mode, d in MODE_TO_DTYPE.items():
         if np.dtype(dtype) == d:

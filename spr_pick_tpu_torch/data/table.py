@@ -81,6 +81,24 @@ def empty(columns=PICK_COLUMNS) -> Table:
     return {k: np.array([], dtype=object) for k in columns}
 
 
+def picks(name: str, scores: np.ndarray, coords: np.ndarray, shape,
+          border: int) -> Table:
+    """K1's picks of one micrograph of ``shape`` as a pick table, in NMS
+    order: those more than ``border`` px inside every edge (all of them
+    with ``border`` 0), with the reference's swapped columns, x_coord from
+    coords[:, 1] and y_coord from coords[:, 0] (train.py:write_scores)."""
+    keep = (
+        (coords[:, 1] > border) & (coords[:, 1] < shape[0] - border)
+        & (coords[:, 0] > border) & (coords[:, 0] < shape[1] - border)
+    ) if border > 0 else np.ones(len(scores), bool)
+    return {
+        "image_name": np.array([name] * int(keep.sum()), dtype=object),
+        "x_coord": coords[keep, 1].astype(np.int64),
+        "y_coord": coords[keep, 0].astype(np.int64),
+        "score": scores[keep],
+    }
+
+
 def to_frame(table: Table):
     """The table as a pandas DataFrame (pandas imported here only)."""
     import pandas as pd

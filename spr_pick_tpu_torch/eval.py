@@ -29,20 +29,26 @@ from __future__ import annotations
 import logging
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Dict, Optional
+from typing import (Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
 
 from spr_pick_tpu_torch import cfg as cfg_mod
-from spr_pick_tpu_torch.data.micrograph import unpad
+from spr_pick_tpu_torch.data import table as tbl
+from spr_pick_tpu_torch.data.loader import (U8_STEPS, Raw,
+                                           minmax_quantize_device)
+from spr_pick_tpu_torch.data.micrograph import (pad_to_multiple,
+                                               padded_shape, unpad)
 from spr_pick_tpu_torch.denoiser import Denoiser
-from spr_pick_tpu_torch.ops.nms import nms_batch_to_host, nms_to_host
+from spr_pick_tpu_torch.ops.nms import nms_batch_to_host
 from spr_pick_tpu_torch.parallel.dcn import allreduce_metrics, host_shard
 from spr_pick_tpu_torch.params import (ConfigValue, DatasetType, Pipeline,
                                        PipelineOutput)
 from spr_pick_tpu_torch.steps import eval_step
 from spr_pick_tpu_torch.utils import checkpoint as ckpt
+from spr_pick_tpu_torch.utils import profiling
 from spr_pick_tpu_torch.utils.device import resolve_device
 from spr_pick_tpu_torch.utils.image_io import (ScalarWriter,
                                                quantize_u8_device,
@@ -55,6 +61,8 @@ logger = logging.getLogger("eval")
 
 HALO_CANDIDATES = (32, 64, 96, 128, 160, 224, 320)
 
+Picks = Tuple[np.ndarray, np.ndarray]
+
 
 class EvaluatorBase:
     """The dense evaluation pass over a test set, its artifacts and the run
@@ -65,9 +73,12 @@ class EvaluatorBase:
     artifact names and the run name) and ``step`` (for the weight
     fingerprint).  Run dirs are `<runs_dir>/NNNNN-<RUN_KIND>-<config_name>`.
 
-    Micrographs whose padded edge exceeds ``tile_eval_threshold`` px take
-    halo tiling: ``tile_eval_size`` px tiles with a ``tile_eval_halo`` px
-    halo (an int, or "auto" to measure it per weight set), one window a
+    The dense inference loop is `groups` and `forward`, which the `Picker`
+    drives as well: consecutive same-shape micrographs in groups, each
+    group padded, uploaded and run in one forward.  Micrographs whose
+    padded edge exceeds ``tile_eval_threshold`` px (`tiled`) go alone and
+    take halo tiling: ``tile_eval_size`` px tiles with a ``tile_eval_halo``
+    px halo (an int, or "auto" to measure it per weight set), one window a
     forward; a subclass that sets ``_replicas`` (denoisers on other cards)
     deals the windows of a frame round-robin over them.
 
@@ -104,6 +115,7 @@ class EvaluatorBase:
         self._pending_exports = []
         self._writer: Optional[ScalarWriter] = None
         self._replicas = []
+        self._u8_steps = torch.from_numpy(U8_STEPS).to(self.device)
 
     @property
     def is_main(self) -> bool:
@@ -169,8 +181,98 @@ class EvaluatorBase:
     # Evaluation
     # ------------------------------------------------------------------
 
-    def _forward(self, inp: torch.Tensor, generator: torch.Generator):
-        return eval_step(self.denoiser, {"inp": inp}, generator=generator)
+    def tiled(self, shape) -> bool:
+        """Whether a micrograph of ``shape`` takes halo tiling: its edge
+        after the pad to 32 is above ``tile_eval_threshold``."""
+        return max(padded_shape(shape, 32)) > self.tile_eval_threshold
+
+    def groups(self, load: Callable[[int], object], n: int, batch_size: int,
+               shape_of: Callable = lambda image: image.shape
+               ) -> Iterator[Tuple[int, List]]:
+        """(position of the first, group) of the micrographs ``load(0)`` ..
+        ``load(n - 1)``: consecutive ones of one ``shape_of``, up to
+        ``batch_size`` a group, and one that takes halo tiling alone.  One
+        whose shape ends a group is carried into the next, so none is
+        loaded twice (a folder dataset decodes from disk on every load)."""
+        carried = None
+        i = 0
+        while i < n:
+            first = carried if carried is not None else load(i)
+            carried = None
+            group, shape = [first], shape_of(first)
+            while (len(group) < batch_size and i + len(group) < n
+                   and not self.tiled(shape)):
+                nxt = load(i + len(group))
+                if shape_of(nxt) != shape:
+                    carried = nxt
+                    break
+                group.append(nxt)
+            yield i, group
+            i += len(group)
+
+    def forward(self, images: Sequence[Union[np.ndarray, Raw]],
+                generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        """One dense forward over a group of host micrographs (float32 H,W
+        of one shape after the pad to 32), or halo tiling of one that takes
+        it; the outputs stay on the device, padded, and on a GPU this
+        returns before the forward ends.  The micrographs are padded,
+        stacked and uploaded as one (B, H, W, 1) tensor, and `Raw` ones are
+        min-max quantised there (the reflection pad only copies pixels, so
+        padding first changes no bit).  Sample noise is drawn from
+        ``generator``.  Span ``spr.forward``."""
+        with profiling.span("spr.forward"):
+            square = not self.denoiser.supports_rect_dense
+            shape = images[0].shape
+            inp = torch.from_numpy(np.stack([
+                pad_to_multiple(im.values if isinstance(im, Raw) else im, 32,
+                                square=square)[0]
+                for im in images])[..., None]).to(self.device)
+            raw = [i for i, im in enumerate(images) if isinstance(im, Raw)]
+            # In place: the model sees the strides of the host path's input
+            # (a conv may pick its algorithm, and so its rounding, by them).
+            if len(raw) == len(images):
+                inp.copy_(minmax_quantize_device(inp, self._u8_steps))
+            elif raw:
+                inp[raw] = minmax_quantize_device(inp[raw], self._u8_steps)
+            if raw:
+                profiling.count("load.device_quantise", len(raw))
+            if self.tiled(shape):
+                if len(images) != 1:
+                    raise ValueError(
+                        "halo tiling takes one micrograph at a time")
+                return self.evaluate_tiled(inp[0, :, :, 0], generator, shape)
+            return eval_step(self.denoiser, {"inp": inp}, generator=generator)
+
+    def picks(self, heatmaps: torch.Tensor, radius: int, threshold: float,
+              max_peaks: int, denoised: Optional[torch.Tensor] = None
+              ) -> List[Picks]:
+        """K1 over a group's (B, h, w) detector maps in one call, with its
+        cap retries: (scores, coords) of each map.  ``denoised``: the
+        group's (B, h, w) denoised maps, whose `find_contamination` masks
+        seed the suppression (numpy, so those maps come to the host)."""
+        suppressed = None
+        if denoised is not None:
+            from spr_pick_tpu_torch.ops.algorithms import find_contamination
+
+            suppressed = np.stack([find_contamination(d) for d in
+                                   denoised.cpu().numpy()]).astype(bool)
+        return nms_batch_to_host(heatmaps, radius, threshold=threshold,
+                                 max_peaks=max_peaks, suppressed=suppressed)
+
+    def _cfg_picks(self, outputs: Dict, shape) -> List[Picks]:
+        """`picks` over a group's ``outputs`` cropped to ``shape``, with the
+        cfg's NMS radius and cap and the 0.02 floor, seeded with the
+        contamination masks when the cfg excludes contamination."""
+        def crop(key):
+            return outputs[key][:, : shape[0], : shape[1], 0]
+
+        den = None
+        if (self.cfg.get(ConfigValue.EXCLUDE_CONTAM, False)
+                and PipelineOutput.IMG_DENOISED in outputs):
+            den = crop(PipelineOutput.IMG_DENOISED)
+        return self.picks(crop(PipelineOutput.DETECT),
+                          int(self.cfg[ConfigValue.NMS]), 0.02,
+                          int(self.cfg.get(ConfigValue.MAX_PEAKS, 2048)), den)
 
     def _add_psnr(self, outputs: Dict, item: Dict) -> None:
         if item["gt"] is None:
@@ -186,87 +288,39 @@ class EvaluatorBase:
         """Dense eval pass (train.py:887-1116): per test micrograph run the
         dense model, accumulate PSNR when gt is present, and hand outputs to
         the artifact callback.  ``picks_for_all``: the callback exports
-        picks for EVERY item, which enables one batched NMS call a group."""
+        picks for EVERY item, so K1 runs once a group here."""
         batch_size = max(int(self.cfg[ConfigValue.TEST_MINIBATCH_SIZE] or 1), 1)
         indices = list(iter(self.test_sampler))
         # Positions in the test order; a rank of a mesh keeps its shard.
         order = list(range(len(indices)))
         if self.mesh is not None:
             order = host_shard(order, self.mesh.rank, self.mesh.size)
-        use_contam = bool(self.cfg.get(ConfigValue.EXCLUDE_CONTAM, False))
-        nms_radius = int(self.cfg[ConfigValue.NMS])
-        max_peaks = int(self.cfg.get(ConfigValue.MAX_PEAKS, 2048))
-        # The rot4 fold needs square inputs unless the denoiser has the
-        # rectangular two-lane fold.
-        square = self.denoiser.blindspot and not self.denoiser.supports_rect_dense
+        square = not self.denoiser.supports_rect_dense
 
-        def finish(i, per, item):
-            self.eval_history["n"] += 1
-            self._add_psnr(per, item)
-            if output_callback:
-                output_callback(i, per, item)
+        def load(k):
+            # Unpadded: `forward` pads.
+            return self.testset.test_item(indices[order[k]], pad_multiple=1)
 
-        carried = None
-        idx = 0
-        while idx < len(order):
-            if carried is not None:
-                first, carried = carried, None
-            else:
-                first = self.testset.test_item(indices[order[idx]],
-                                               pad_multiple=32, square=square)
-            if max(first["inp"].shape[1:3]) > self.tile_eval_threshold:
-                # Giant micrographs go through halo tiling.
-                finish(order[idx],
-                       self._evaluate_tiled(first, self._generator), first)
-                idx += 1
-                continue
+        def padded(item):
+            return padded_shape(item["image_shape"], 32, square)
 
-            # Group consecutive same-shape micrographs into one batch; a
-            # shape-boundary item is carried into the next group (folder
-            # datasets decode from disk on every test_item call).
-            group = [first]
-            while len(group) < batch_size and idx + len(group) < len(order):
-                nxt = self.testset.test_item(indices[order[idx + len(group)]],
-                                             pad_multiple=32, square=square)
-                if nxt["inp"].shape != first["inp"].shape:
-                    carried = nxt
-                    break
-                group.append(nxt)
-
-            inp = torch.from_numpy(
-                np.concatenate([it["inp"] for it in group], axis=0)
-            ).to(self.device)
-            outputs = self._forward(inp, self._generator)
-            shape = first["image_shape"]
+        for start, group in self.groups(load, len(order), batch_size, padded):
+            outputs = self.forward([it["inp"][0, :, :, 0] for it in group],
+                                   self._generator)
+            shape = group[0]["image_shape"]
             group_picks = None
-            if (len(group) > 1 and picks_for_all
-                    and PipelineOutput.DETECT in outputs
+            if (picks_for_all and PipelineOutput.DETECT in outputs
                     and all(it["image_shape"] == shape for it in group)):
-                # One NMS call over the group (nms_batch_device, then
-                # nms_batch_trim with the capped-list retry).  Contamination
-                # seeding needs the denoised maps on the host:
-                # find_contamination is numpy.
-                suppressed = None
-                if use_contam and PipelineOutput.IMG_DENOISED in outputs:
-                    from spr_pick_tpu_torch.ops.algorithms import \
-                        find_contamination
-
-                    den = outputs[PipelineOutput.IMG_DENOISED][
-                        :, : shape[0], : shape[1], 0].cpu().numpy()
-                    suppressed = np.stack(
-                        [find_contamination(d) for d in den]).astype(bool)
-                group_picks = nms_batch_to_host(
-                    outputs[PipelineOutput.DETECT][:, : shape[0], : shape[1], 0],
-                    nms_radius, threshold=0.02, max_peaks=max_peaks,
-                    suppressed=suppressed,
-                )
+                group_picks = self._cfg_picks(outputs, shape)
             for j, item in enumerate(group):
                 per = {k: v[j : j + 1] for k, v in outputs.items()
                        if v.ndim == 4}
                 if group_picks is not None:
                     per["_picks"] = group_picks[j]
-                finish(order[idx + j], per, item)
-            idx += len(group)
+                self.eval_history["n"] += 1
+                self._add_psnr(per, item)
+                if output_callback:
+                    output_callback(order[start + j], per, item)
         # Every artifact is on disk when this returns.
         self._flush_exports()
         if self.mesh is not None:
@@ -280,21 +334,21 @@ class EvaluatorBase:
     # Halo tiling
     # ------------------------------------------------------------------
 
-    def _evaluate_tiled(self, item: Dict, generator: torch.Generator) -> Dict:
-        """Halo-tiled dense pass for a micrograph above
-        `tile_eval_threshold` (train.py:1118-1152): fixed-size tiles with a
-        halo run through the same dense forward, each chunk with fresh noise
-        from ``generator``, and are stitched on the device.  Returns
-        per-image outputs shaped like the whole-image path's."""
+    def evaluate_tiled(self, image: torch.Tensor, generator: torch.Generator,
+                       image_shape=None) -> Dict:
+        """Halo-tiled dense pass over the padded (H, W) ``image`` on the
+        device, for a micrograph above `tile_eval_threshold`
+        (train.py:1118-1152): fixed-size tiles with a halo run through the
+        same dense forward, each chunk with fresh noise from ``generator``,
+        and are stitched on the device.  ``image_shape``: the unpadded
+        shape, where "auto" takes its probe.  Returns per-image outputs
+        shaped like the whole-image path's."""
         from spr_pick_tpu_torch.parallel.tiling import tiled_dense_apply
 
         apply_tiles = self._tile_apply_fn(generator)
-        image = torch.from_numpy(
-            np.ascontiguousarray(item["inp"][0, :, :, 0])).to(self.device)
         halo = self.tile_eval_halo
         if halo == "auto":
-            halo = self._calibrated_halo(apply_tiles, image,
-                                         item.get("image_shape"))
+            halo = self._calibrated_halo(apply_tiles, image, image_shape)
         fns = [apply_tiles] + [self._replica_apply_fn(r, generator)
                                for r in self._replicas]
         stitched = tiled_dense_apply(fns, image, tile=self.tile_eval_size,
@@ -328,7 +382,8 @@ class EvaluatorBase:
         from ``generator``, so no two chunks share a noise field."""
 
         def apply_tiles(chunk):
-            outputs = self._forward(chunk, generator)
+            outputs = eval_step(self.denoiser, {"inp": chunk},
+                                generator=generator)
             return {k: v for k, v in outputs.items()
                     if v.ndim == 4 and v.shape[1:3] == chunk.shape[1:3]}
 
@@ -465,43 +520,20 @@ class EvaluatorBase:
             unpad_save(outputs[PipelineOutput.MODEL_STD_DEV], "out-std")
         if PipelineOutput.DETECT in outputs and scoreformat is not None:
             unpad_save(outputs[PipelineOutput.DETECT], "pred_tar")
-            heatmap = outputs[PipelineOutput.DETECT][0, : shape[0], : shape[1], 0]
-            suppressed = None
-            if (outputs.get("_picks") is None
-                    and self.cfg.get(ConfigValue.EXCLUDE_CONTAM, False)
-                    and PipelineOutput.IMG_DENOISED in outputs):
-                from spr_pick_tpu_torch.ops.algorithms import \
-                    find_contamination
-
-                den = unpad(
-                    outputs[PipelineOutput.IMG_DENOISED][0, :, :, 0]
-                    .cpu().numpy(), shape)
-                suppressed = find_contamination(den).astype(bool)
-            self.write_scores(heatmap, name, path_for("scores", scoreformat),
-                              picks=outputs.get("_picks"),
-                              suppressed=suppressed)
+            picks = outputs.get("_picks")
+            if picks is None:
+                (picks,) = self._cfg_picks(outputs, shape)
+            self.write_scores(
+                outputs[PipelineOutput.DETECT][0, : shape[0], : shape[1], 0],
+                name, path_for("scores", scoreformat), picks=picks)
 
     def write_scores(self, heatmap: torch.Tensor, name: str, out_path: str,
-                     picks=None, suppressed=None):
-        """NMS -> `_scores.txt` rows with the 30 px border filter
-        (train.py:1326-1360), including the reference's swapped columns:
-        x_coord holds coords[:, 1] and y_coord coords[:, 0].  ``picks``:
-        precomputed (scores, coords) of the batched path."""
-        if picks is not None:
-            scores, coords = picks
-        else:
-            scores, coords = nms_to_host(
-                heatmap, int(self.cfg[ConfigValue.NMS]), threshold=0.02,
-                max_peaks=int(self.cfg.get(ConfigValue.MAX_PEAKS, 2048)),
-                suppressed=suppressed,
-            )
-        x_max, y_max = heatmap.shape[0] - 30, heatmap.shape[1] - 30
+                     picks: Picks):
+        """K1's ``picks`` (scores, coords) on ``heatmap``, the micrograph's
+        detector map -> its `_scores.txt` (train.py:1326-1360): `tbl.picks`
+        with the 30 px border filter and the reference's swapped columns."""
         with open(out_path, "w") as f:
-            print("image_name\tx_coord\ty_coord\tscore", file=f)
-            for i in range(len(scores)):
-                if 30 < coords[i, 1] < x_max and 30 < coords[i, 0] < y_max:
-                    print(f"{name}\t{coords[i, 1]}\t{coords[i, 0]}\t"
-                          f"{scores[i]}", file=f)
+            tbl.write_tsv(f, tbl.picks(name, *picks, heatmap.shape, 30))
 
     # ------------------------------------------------------------------
     # Metrics, run dir

@@ -140,18 +140,18 @@ def test_giant_micrograph_is_refused(setup):
     port = setup["port"]
     port.border = 0
     calls = []
-    evaluate_tiled = port._ev._evaluate_tiled
+    evaluate_tiled = port.evaluator.evaluate_tiled
 
-    def counting(item, generator):
-        calls.append(item["inp"].shape)
-        return evaluate_tiled(item, generator)
+    def counting(image, generator, image_shape):
+        calls.append(tuple(image.shape))
+        return evaluate_tiled(image, generator, image_shape)
 
-    port._ev._evaluate_tiled = counting
+    port.evaluator.evaluate_tiled = counting
     try:
         img = np.random.RandomState(3).rand(2050, 64).astype(np.float32)
         scores, coords, shape = port.pick_arrays(img)
     finally:
-        del port._ev._evaluate_tiled
-    assert calls == [(1, 2080, 64, 1)]
+        del port.evaluator.evaluate_tiled
+    assert calls == [(2080, 64)]
     assert shape == (2050, 64) and len(scores) > 0
     assert (coords[:, 0] < 64).all() and (coords[:, 1] < 2050).all()

@@ -66,7 +66,7 @@ def setup(tmp_path_factory):
     mrc.write(mic, (rng.randn(*SHAPE) * 3 + 10).astype(np.float32))
     port = Picker(wt, device="cpu")
     jax_picker = JPicker(wt)
-    lower_knobs(port._ev)
+    lower_knobs(port.evaluator)
     lower_knobs(jax_picker._ev)
     picks, den = port.process(mic)
     return dict(wt=wt, mic=mic, port=port, jax=jax_picker, picks=picks,
@@ -117,7 +117,7 @@ def test_auto_halo_matches_jax(setup, monkeypatch):
     jev = setup["jax"]._ev
     want = jev._calibrated_halo(_jax_apply_tiles(jev), img, SHAPE)
 
-    ev = setup["port"]._ev
+    ev = setup["port"].evaluator
     apply_tiles = ev._tile_apply_fn(torch.Generator().manual_seed(0))
     got = ev._calibrated_halo(apply_tiles, torch.from_numpy(img), SHAPE)
     assert got == want
@@ -141,7 +141,7 @@ def seeded(tmp_path_factory):
     wt = make_port_wt(str(d / "live_a.wt"))
     img = np.random.RandomState(1).rand(288, 160).astype(np.float32)
     picker = Picker(wt, seed=3, border=0, device="cpu")
-    lower_knobs(picker._ev)
+    lower_knobs(picker.evaluator)
     return dict(wt=wt, img=img, picker=picker)
 
 
@@ -170,7 +170,7 @@ def test_tiled_route_is_deterministic_and_seeded(seeded):
     assert all(torch.equal(a, b) for a, b in zip(states[:6], states[6:]))
 
     other = Picker(seeded["wt"], seed=4, border=0, device="cpu")
-    lower_knobs(other._ev)
+    lower_knobs(other.evaluator)
     third = other.pick(img)
     assert not (len(third) == len(first)
                 and np.array_equal(third[["x_coord", "y_coord"]].to_numpy(),
@@ -182,21 +182,21 @@ def test_tiled_route_is_deterministic_and_seeded(seeded):
 def test_pick_many_sends_giant_micrographs_one_at_a_time(seeded):
     picker, img = seeded["picker"], seeded["img"]
     tiled = []
-    evaluate_tiled = picker._ev._evaluate_tiled
+    evaluate_tiled = picker.evaluator.evaluate_tiled
 
-    def counting(item, generator):
-        tiled.append(item["inp"].shape)
-        return evaluate_tiled(item, generator)
+    def counting(image, generator, image_shape):
+        tiled.append(tuple(image.shape))
+        return evaluate_tiled(image, generator, image_shape)
 
-    picker._ev._evaluate_tiled = counting
+    picker.evaluator.evaluate_tiled = counting
     try:
         small = np.random.RandomState(2).rand(96, 96).astype(np.float32)
         got = picker.pick_many([img, img, small], batch_size=2,
                                names=["a", "b", "c"])
         want = picker.pick(img, name="a")
     finally:
-        del picker._ev._evaluate_tiled
-    assert tiled == [(1, 288, 160, 1)] * 3  # a, b, then the reference
+        del picker.evaluator.evaluate_tiled
+    assert tiled == [(288, 160)] * 3  # a, b, then the reference
     a = got[got.image_name == "a"].reset_index(drop=True)
     b = got[got.image_name == "b"].reset_index(drop=True)
     assert a.equals(want)

@@ -645,14 +645,14 @@ def test_tiled_pass_over_two_replicas_is_the_one_device_stitch(ranks):
     outs = []
     for kw in ({"device": "cpu"}, {"devices": ["cpu", "cpu"]}):
         picker = Picker(str(ranks["dir"] / "joint.wt"), border=0, **kw)
-        ev = picker._ev
+        ev = picker.evaluator
         ev.tile_eval_threshold, ev.tile_eval_size, ev.tile_eval_halo = \
             64, 64, 16
-        assert picker._tiled(image.shape)
+        assert ev.tiled(image.shape)
         assert len(ev._replicas) == len(kw.get("devices", [0])) - 1
-        outputs, shape = picker._forward([image])
-        outs.append((outputs, picker._nms(picker._heatmaps(outputs,
-                                                           shape)[0])))
+        outputs = ev.forward([image], torch.Generator().manual_seed(0))
+        outs.append((outputs, picker._nms(picker._heatmaps(
+            outputs, image.shape)[0])))
     (one, picks_one), (two, picks_two) = outs
     assert one.keys() == two.keys() and PipelineOutput.DETECT in one
     for k in one:

@@ -122,7 +122,8 @@ def runs(tmp_path_factory):
                      for k, m in pev.eval_history.items()
                      if k != "n" and not m.empty()}
         out[name] = dict(jax=jev.run_dir_path, port=pev.run_dir_path,
-                         jax_psnr=jax_psnr, port_psnr=port_psnr)
+                         jax_psnr=jax_psnr, port_psnr=port_psnr, wt=wt,
+                         mics=d / "mics")
     return out
 
 
@@ -184,6 +185,30 @@ def test_eval_png_pixels_match_jax(runs, run):
             np.testing.assert_array_equal(got, want, err_msg=f)
         else:
             assert np.abs(got - want).max() <= 1, f
+
+
+@pytest.mark.parametrize("run,batch_size", [("batched", 2), ("folder", 1)])
+def test_eval_scores_are_the_pickers_rows(runs, run, batch_size):
+    """The port's `_scores.txt` rows are `Picker.pick_many_table`'s (30 px
+    border) on the same MRCs, groups and checkpoint, text for text: the
+    evaluator decodes on the host, the Picker quantises on the device, and
+    both run the one inference loop and write the one picks table."""
+    from spr_pick_tpu_torch.api import Picker
+
+    r = runs[run]
+    picker = Picker(r["wt"], device="cpu")
+    table = picker.pick_many_table(
+        [str(r["mics"] / f"m{i}.mrc") for i in range(2)],
+        batch_size=batch_size)
+    got = [list(table)] + [[str(v) for v in row]
+                           for row in zip(*table.values())]
+    want = [got[0]]
+    for name in ("m0", "m1"):
+        rows = _rows(os.path.join(r["port"], "eval_imgs",
+                                  f"{name}_scores.txt"))
+        assert rows[0] == want[0] and len(rows) > 1
+        want += rows[1:]
+    assert got == want
 
 
 def test_eval_contamination_seeding_moves_picks(runs):

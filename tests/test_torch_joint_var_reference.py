@@ -236,13 +236,14 @@ def test_window_reference_equals_the_tiled_route(shape, seed, tmp_path):
     conf["model"] = model
     program.write_checkpoint(conf, w, wt, "cpu")
     picker = program.open_picker(conf, wt, seed, "cpu")
-    ev = picker._ev
+    ev = picker.evaluator
     ev.tile_eval_threshold, ev.tile_eval_size, ev.tile_eval_halo = 96, 64, 16
     path = data.write_pool([raw], str(tmp_path))[0]
 
     from spr_pick_tpu_torch.params import PipelineOutput
 
-    outputs, _ = picker._forward([picker._load(path, False)])
+    outputs = ev.forward([picker._load(path, False)],
+                         torch.Generator().manual_seed(seed))
     got = outputs[PipelineOutput.DETECT][0, :, :, 0]
     want = pick_tiled.reference_map(ref.Net(w, model, "f32"), raw, seed, 64,
                                     16, "cpu")
