@@ -235,9 +235,16 @@ script then exits nonzero and prints no result):
      distance; the gap with no input widened; each conv step fed the NCHW
      route's own input, its bits apart (the two convs' kernels where they
      differ); both routes' times; no cuDNN layout kernel
-     (``nchwToNhwc``/``nhwcToNchw``) in a trace of either forward; and the
-     host's time in one fold, split by the route's functions, beside the
-     epilogue's ctypes launch, its wrapper and a PyTorch op.
+     (``nchwToNhwc``/``nhwcToNchw``) in a trace of either forward; the
+     direct route (every hand-off written by its producer into the
+     consuming conv's buffer) against the staged route of
+     `tests/test_torch_fold_direct.py`, bit for bit at 1024^2 and at a
+     1216^2 window, with no cat, max-pool or flip kernel in its trace; each
+     hand-off (pool with its skip slot, upsample into a concatenation,
+     un-rotate into the head's input, the fold's input launch) == its plain
+     version, timed beside its bytes bound; and the host's time in one
+     fold, split by the route's functions, beside the epilogue's ctypes
+     launch, its wrapper and a PyTorch op.
 
 The weights are random, made from a seed.  The detector's 1x1 classifier
 takes the absolute value of its random weights and a scale and bias fitted
@@ -3778,10 +3785,24 @@ def perturb_(den, seed: int) -> None:
                     t.copy_(0.1 * r)
 
 
+def placed(handoff: dict, device) -> dict:
+    """The epilogue's hand-off keywords with copies on ``device`` of the
+    buffers it writes into (``out``, the ``skip`` slot's buffer)."""
+    out = dict(handoff)
+    if out.get("out") is not None:
+        out["out"] = out["out"].to(device).clone()
+    if out.get("skip") is not None:
+        out["skip"] = out["skip"]._replace(
+            buf=out["skip"].buf.to(device).clone())
+    return out
+
+
 def stage_records(den, run, grad: bool = False):
     """(name, module, args, output) of every ShiftConv, channels-last conv
     step (`BlindspotUNet._step_cl`: the module is the U-Net, the args
-    (conv name, padded input, pad)), ResNet block and classifier that
+    (conv name, padded input, pad, the epilogue's hand-off keywords with
+    the buffers it writes into as they were before)), ResNet block and
+    classifier that
     ``run()`` calls on the CPU, in call order; gradients on with
     ``grad`` (as training runs, which takes the NCHW route)."""
     from types import MethodType
@@ -3804,10 +3825,14 @@ def stage_records(den, run, grad: bool = False):
                     lambda mod, args, out, n=f"{prefix}.{name}":
                     recs.append((n, mod, args, out.detach()))))
             if isinstance(m, BlindspotUNet):
-                def step(self, conv, xp, pad, n=f"{prefix}.{name}"):
-                    out = BlindspotUNet._step_cl(self, conv, xp, pad)
+                def step(self, conv, xp, pad, n=f"{prefix}.{name}",
+                         **handoff):
+                    # The buffers the step writes into, as they were.
+                    before = placed(handoff, "cpu")
+                    out = BlindspotUNet._step_cl(self, conv, xp, pad,
+                                                 **handoff)
                     recs.append((f"{n}.{conv}".replace("..", "."), self,
-                                 (conv, xp, pad), out))
+                                 (conv, xp, pad, before), out.clone()))
                     return out
                 m._step_cl = MethodType(step, m)
                 steps.append(m)
@@ -3936,17 +3961,21 @@ def bf16_stages_phase(gpu: str) -> None:
                 sub = copy.deepcopy(sub)
             with torch.no_grad():
                 if isinstance(mod, BlindspotUNet):
-                    conv, xp, pad = args
+                    conv, xp, pad, handoff = args
                     y = mod._conv_cl(conv, xp)
                     bias = getattr(mod, conv).conv.bias.to(y.dtype)
                     slope = _slope_in(0.1, torch.bfloat16)
-                    got = sub._step_cl(conv, xp.cuda(), pad)
-                    scale = conv_epilogue(y, torch.zeros_like(bias), pad)
+                    got = sub._step_cl(conv, xp.cuda(), pad,
+                                       **placed(handoff, "cuda"))
+                    scale = conv_epilogue(y, torch.zeros_like(bias), pad,
+                                          **placed(handoff, "cpu"))
                     total += 1
                     if torch.equal(
-                            conv_epilogue(y.cuda(), bias.cuda(), pad,
-                                          slope).cpu().view(torch.int16),
-                            conv_epilogue(y, bias, pad, slope).view(
+                            conv_epilogue(y.cuda(), bias.cuda(), pad, slope,
+                                          **placed(handoff, "cuda")
+                                          ).cpu().view(torch.int16),
+                            conv_epilogue(y, bias, pad, slope,
+                                          **placed(handoff, "cpu")).view(
                                 torch.int16)):
                         exact += 1
                     else:
@@ -4025,16 +4054,17 @@ def old_bf16_slope(model) -> None:
 
     import torch.nn.functional as F
 
+    from spr_pick_tpu_torch.ops.conv_epilogue import conv_epilogue_plain
+
     unet = model.denoise_branch
 
     def conv_old_slope(self, name, h):
         return F.leaky_relu(getattr(self, name)(h), 0.1)
 
-    def step_old_slope(self, name, xp, pad):
-        top, bottom, left, right = pad
+    def step_old_slope(self, name, xp, pad, **handoff):
         bias = getattr(self, name).conv.bias.to(torch.bfloat16)
-        z = F.leaky_relu(self._conv_cl(name, xp) + bias, 0.1)
-        return F.pad(z, (0, 0, left, right, top, bottom))
+        return conv_epilogue_plain(self._conv_cl(name, xp), bias, pad, 0.1,
+                                   **handoff)
 
     unet._conv = MethodType(conv_old_slope, unet)
     unet._step_cl = MethodType(step_old_slope, unet)
@@ -4510,8 +4540,10 @@ def old_chain(y, b, pad, act: bool):
     return z.permute(0, 2, 3, 1)
 
 
-FOLD_LAUNCHES = (19, 20)   # epilogue launches, conv.fused of a rot4 fold
-PROCESS_LAUNCHES = (32, 34)  # a fold and a sigma-net forward (13, 14)
+# A rot4 fold's epilogue launches, conv.fused, input launches and
+# fold.direct (19 epilogues, 4 skip slots, the input launch's 2).
+FOLD_LAUNCHES = (19, 20, 1, 25)
+PROCESS_LAUNCHES = (32, 34, 2, 42)  # a fold and a sigma net (13, 14, 1, 17)
 # The channels-last route against the NCHW route at 1024^2, on seeded
 # random weights.  cuDNN picks another fprop kernel for 3 of the fold's 20
 # steps when their input is channels-last (enc1_conv0: a tensor-core
@@ -4529,26 +4561,143 @@ STEP_APART_MAX = 1e-3
 WIDENED = {"enc1_conv0": 8, "dec_final_conv0": 32}  # `_padded_cat` multiples
 
 
+def fold_tests():
+    """tests/test_torch_fold_direct.py: the staged route (each hand-off a
+    pass of its own), the reference the direct route is held to."""
+    import importlib.util
+
+    path = os.path.join(REPO, "tests", "test_torch_fold_direct.py")
+    spec = importlib.util.spec_from_file_location("fold_direct_tests", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# The hand-offs of a 1024^2 rot4 fold (4 lanes, 5 levels, blind-spot pad):
+# (label, conv output (N, H, W, C), epilogue keywords, destination
+# channels, skip (channels, slot) or None).
+HANDOFF_CASES = (
+    ("pool 48ch + skip into 144ch (enc1_conv1)", (4, 1024, 1024, 48),
+     dict(handoff="pool", shift=True), 48, (144, 96)),
+    ("upsample 96ch into 128ch (dec3_conv1)", (4, 512, 512, 96),
+     dict(handoff="upsample"), 128, None),
+    ("upsample 96ch into 144ch (dec2_conv1)", (4, 256, 256, 96),
+     dict(handoff="upsample"), 144, None),
+    ("unrotate 96ch into 384ch (dec_final_conv1)", (4, 1024, 1024, 96),
+     dict(handoff="unrotate", shift=True), 384, None),
+)
+
+
+FOLD_INPUT_LABEL = "fold input (1, 1024^2, 1) -> 8ch + 32ch slot of 128ch"
+
+
+def handoff_rows(gpu: str) -> dict:
+    """Each hand-off of the epilogue at the main path's shapes and the
+    fold's input launch: kernel == plain (the staged ops on the card) bit
+    for bit on sentinel-filled buffers, its time beside its bytes bound
+    (each conv output byte read once, each destination byte written once:
+    the slot's interior, every channel of the border) and the plain
+    version's time."""
+    from spr_pick_tpu_torch.models.blindspot import _slope_in
+    from spr_pick_tpu_torch.ops import conv_epilogue as ce
+
+    pad, slope, rows = (2, 0, 1, 1), _slope_in(0.1, torch.bfloat16), {}
+    for i, (label, shape, kw, dch, skip) in enumerate(HANDOFF_CASES):
+        y, b = epilogue_input(shape, SEED + 180 + i)
+        b = b.float()
+        moved = ce._moved_shape(y, kw["handoff"])
+        p = ce.NO_PAD if kw["handoff"] == "unrotate" else pad
+        out_shape = ce._padded(moved[:3] + (dch,), p)
+        out = torch.randn(out_shape, device="cuda").bfloat16()
+        out_plain = out.clone()
+        args = dict(kw, out=out)
+        plain_args = dict(kw, out=out_plain)
+        interior = moved[0] * moved[1] * moved[2] * moved[3]
+        border = (out.numel() // out_shape[3]
+                  - moved[0] * moved[1] * moved[2]) * out_shape[3]
+        written = interior + border
+        if skip:
+            sbuf = torch.randn(ce._padded(moved[:3] + (skip[0],), pad),
+                               device="cuda").bfloat16()
+            args["skip"] = ce.Slot(sbuf, pad, skip[1])
+            plain_args["skip"] = ce.Slot(sbuf.clone(), pad, skip[1])
+            written += interior
+        ce.conv_epilogue(y, b, p, slope, **args)
+        ce.conv_epilogue_plain(y, b, p, slope, **plain_args)
+        torch.cuda.synchronize()
+        for got, want in ((out, out_plain),) + (
+                ((args["skip"].buf, plain_args["skip"].buf),) if skip else ()):
+            if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+                bad = int((got.view(torch.int16)
+                           != want.view(torch.int16)).sum())
+                raise AssertionError(f"hand-off {label}: {bad} elements "
+                                     f"differ from the plain version")
+        bound = 2 * (y.numel() + written) / HBM_BYTES_S * 1e3
+        text, med = summary(cuda_ms(lambda: ce.conv_epilogue(
+            y, b, p, slope, **args)))
+        _, plain_med = summary(cuda_ms(lambda: ce.conv_epilogue_plain(
+            y, b, p, slope, **plain_args)))
+        rows[label] = (med, bound, plain_med, None)
+        log(f"hand-off {label} {tuple(shape)} -> {tuple(out_shape)}: == "
+            f"plain bit for bit; kernel {text}; bound {bound:.4f} ms "
+            f"({100 * bound / med:.1f}% of it, bytes); plain (the staged "
+            f"ops) {plain_med:.4f} ms | {gpu}")
+        del y, b, out, out_plain, args, plain_args
+
+    x = torch.rand((1, SIZE, SIZE, 1), device="cuda")
+    last = torch.randn((4, SIZE + 2, SIZE + 2, 128), device="cuda").bfloat16()
+    last_plain = last.clone()
+    got = ce.fold_input(x, pad, 8, ce.Slot(last, pad, 96), True)
+    want = ce.fold_input_plain(x, pad, 8, ce.Slot(last_plain, pad, 96), True)
+    if not (torch.equal(got.view(torch.int16), want.view(torch.int16))
+            and torch.equal(last.view(torch.int16),
+                            last_plain.view(torch.int16))):
+        raise AssertionError("the fold's input launch differs from its "
+                             "plain version")
+    bound = (4 * x.numel() + 2 * (got.numel() + 4 * SIZE * SIZE * 32)
+             ) / HBM_BYTES_S * 1e3
+    text, med = summary(cuda_ms(lambda: ce.fold_input(
+        x, pad, 8, ce.Slot(last, pad, 96), True)))
+    _, plain_med = summary(cuda_ms(lambda: ce.fold_input_plain(
+        x, pad, 8, ce.Slot(last_plain, pad, 96), True)))
+    label = FOLD_INPUT_LABEL
+    rows[label] = (med, bound, plain_med, None)
+    log(f"{label}: == plain bit for bit; kernel {text}; bound {bound:.4f} ms "
+        f"({100 * bound / med:.1f}% of it, bytes); plain (rot4_stack and "
+        f"the padded copies) {plain_med:.4f} ms | {gpu}")
+    return rows
+
+
+STAGED_KERNELS = ("CatArrayBatchedCopy", "max_pool", "index_elementwise")
+
+
 def epilogue_launches(fn, want, label: str):
-    """``fn()``'s result and the epilogue's launches in it; raises unless
-    (launches, ``conv.fused``) is ``want`` and ``conv.plain`` is 0 (each
-    forward's last conv adds its bias in plain PyTorch)."""
+    """``fn()``'s result and (epilogue launches, ``conv.fused``, the fold
+    input's launches, ``fold.direct``) in it; raises unless that is
+    ``want`` and ``conv.plain`` and ``fold.staged`` are 0 (each forward's
+    last conv adds its bias in plain PyTorch)."""
     from spr_pick_tpu_torch.ops import conv_epilogue as ce
     from spr_pick_tpu_torch.utils import profiling
 
     ce.conv_epilogue_cuda.launches = 0
+    ce.conv_epilogue_cuda.inputs = 0
     before = profiling.counters()
     out = fn()
     torch.cuda.synchronize()
     after = profiling.counters()
-    got = (ce.conv_epilogue_cuda.launches,
-           after.get("conv.fused", 0) - before.get("conv.fused", 0))
-    plain = after.get("conv.plain", 0) - before.get("conv.plain", 0)
-    if got != tuple(want) or plain:
-        raise AssertionError(f"{label}: epilogue launches, conv.fused "
-                             f"{got} (want {tuple(want)}), conv.plain "
-                             f"{plain}")
-    return out, got[0]
+
+    def delta(name):
+        return after.get(name, 0) - before.get(name, 0)
+
+    got = (ce.conv_epilogue_cuda.launches, delta("conv.fused"),
+           ce.conv_epilogue_cuda.inputs, delta("fold.direct"))
+    zero = (delta("conv.plain"), delta("fold.staged"))
+    if got != tuple(want) or any(zero):
+        raise AssertionError(f"{label}: epilogue launches, conv.fused, input "
+                             f"launches, fold.direct {got} (want "
+                             f"{tuple(want)}), conv.plain and fold.staged "
+                             f"{zero}")
+    return out, got
 
 
 def cuda_kernels(fn) -> list:
@@ -4647,10 +4796,8 @@ def host_breakdown(net, x, gpu: str) -> dict:
                 acc[key] = (n + 1, t + time.perf_counter() - t0)
         return wrapper
 
-    patches = [(unet_mod, "_padded_cat"), (unet_mod, "conv_epilogue"),
-               (unet_mod, "_upsample_cl"), (unet_mod.BlindspotUNet,
-                                            "_conv_cl"),
-               (unet_mod.BlindspotUNet, "_pool_cl")]
+    patches = [(unet_mod, "fold_input"), (unet_mod, "conv_epilogue"),
+               (unet_mod.BlindspotUNet, "_conv_cl")]
     saved = [(o, a, getattr(o, a)) for o, a in patches]
     forwards, total = 10, 0.0
     try:
@@ -4682,8 +4829,9 @@ def host_breakdown(net, x, gpu: str) -> dict:
 
     def raw():
         lib.spr_conv_epilogue(y.data_ptr(), y.stride(0), y.stride(1),
-                              b.data_ptr(), o.data_ptr(), 1, 1, 8, 48, 0,
-                              0, 0, 0, 1, 0.1, stream)
+                              b.data_ptr(), 1, 1, 8, 48, 1, 0.1, 0, 0,
+                              o.data_ptr(), 48, 0, 0, 0, 0, None, 0, 0, 0,
+                              0, 0, 0, stream)
 
     def us(fn, n=2000):
         t = 0.0
@@ -4715,7 +4863,6 @@ def host_breakdown(net, x, gpu: str) -> dict:
 def conv_step_phase(gpu: str, Picker, paths, mic: str, img, tmp: str
                     ) -> dict:
     """17.  The conv step's epilogue and the channels-last route."""
-    import spr_pick_tpu_torch.models.unet as unet_mod
     from spr_pick_tpu_torch.models.blindspot import _slope_in
     from spr_pick_tpu_torch.models.unet import BlindspotUNet
     from spr_pick_tpu_torch.ops import conv_epilogue as ce
@@ -4769,8 +4916,9 @@ def conv_step_phase(gpu: str, Picker, paths, mic: str, img, tmp: str
     var = Picker(var_checkpoint(tmp, img, "bf16"))
     _, process = epilogue_launches(lambda: var.process_table(mic),
                                    PROCESS_LAUNCHES, "process_table")
-    log(f"conv epilogue launches a 1024^2 request: denoise {denoise}, "
-        f"process_table of the bf16 var model {process} | {gpu}")
+    log(f"epilogue launches, conv.fused, input launches, fold.direct a "
+        f"1024^2 request: denoise {denoise}, process_table of the bf16 var "
+        f"model {process} | {gpu}")
     del picker, var
 
     # The whole fold and the sigma net, the NCHW route against the
@@ -4793,27 +4941,30 @@ def conv_step_phase(gpu: str, Picker, paths, mic: str, img, tmp: str
         twins[name].cuda().eval()
     x = torch.rand((1, SIZE, SIZE, 1), generator=g).cuda()
 
+    ft = fold_tests()
+
     def narrow(net):
-        """The channels-last route with no input widened."""
-        orig = unet_mod._padded_cat
-        unet_mod._padded_cat = lambda parts, pad, multiple=1: orig(parts,
-                                                                    pad)
-        try:
+        """The staged channels-last route with no input widened."""
+        with ft.staged(net, widen=False):
             return new_route(net, x)
-        finally:
-            unet_mod._padded_cat = orig
+
+    def staged_route(net, x):
+        with ft.staged(net):
+            return new_route(net, x)
 
     def rel(a, b):
         return float((a.float() - b.float()).norm() / b.float().norm())
 
     out, total, gaps = {}, 0, {}
     for name, net in nets.items():
-        want = FOLD_LAUNCHES if net.blindspot else (
-            PROCESS_LAUNCHES[0] - FOLD_LAUNCHES[0],
-            PROCESS_LAUNCHES[1] - FOLD_LAUNCHES[1])
+        want = FOLD_LAUNCHES if net.blindspot else tuple(
+            p - f for p, f in zip(PROCESS_LAUNCHES, FOLD_LAUNCHES))
         with torch.inference_mode():
-            new, launches = epilogue_launches(lambda: new_route(net, x), want,
-                                              name)
+            new, (launches, *_) = epilogue_launches(
+                lambda: new_route(net, x), want, name)
+            if not torch.equal(new, staged_route(net, x)):
+                raise AssertionError(f"{name}: the direct route differs from "
+                                     f"the staged route")
             old = old_route(net, x)
             tf32(False)
             want32 = old_route(twins[name], x)
@@ -4823,13 +4974,17 @@ def conv_step_phase(gpu: str, Picker, paths, mic: str, img, tmp: str
             unwidened = rel(narrow(net), old)
             steps = step_gaps(net, x, gpu)
             new_ms = summary(cuda_ms(lambda: new_route(net, x)))
+            staged_ms = summary(cuda_ms(lambda: staged_route(net, x)))
             old_ms = summary(cuda_ms(lambda: old_route(net, x)))
-            layout = sorted(k for k in cuda_kernels(lambda: new_route(net, x))
-                            if "nchwToNhwc" in k or "nhwcToNchw" in k)
             names = cuda_kernels(lambda: new_route(net, x))
-        if layout:
-            raise AssertionError(f"{name}: layout kernels on the channels-"
-                                 f"last route: {layout}")
+            layout = sorted(k for k in names
+                            if "nchwToNhwc" in k or "nhwcToNchw" in k)
+            passes = sorted(k[:80] for k in names
+                            if any(p in k for p in STAGED_KERNELS))
+        if layout or passes:
+            raise AssertionError(f"{name}: layout or staged copy kernels on "
+                                 f"the channels-last route: {layout} "
+                                 f"{passes}")
         if not any("conv_epilogue_kernel" in n for n in names):
             raise AssertionError(f"{name}: the trace shows no epilogue")
         out[name] = (new_ms[1], old_ms[1])
@@ -4846,10 +5001,21 @@ def conv_step_phase(gpu: str, Picker, paths, mic: str, img, tmp: str
             f"route's input, share of bits apart (gate {STEP_APART_MAX}; "
             f"widened/unwidened): "
             f"{apart or 'none'} of {len(steps)} steps; epilogue launches "
-            f"{launches}; no nchwToNhwc/nhwcToNchw kernel in its trace; "
-            f"channels-last {new_ms[0]}; NCHW {old_ms[0]} | {gpu}")
+            f"{launches}; == the staged route bit for bit; no "
+            f"nchwToNhwc/nhwcToNchw, cat, max-pool or flip kernel in its "
+            f"trace; channels-last {new_ms[0]}; staged (each hand-off a "
+            f"pass) {staged_ms[0]}; NCHW {old_ms[0]} | {gpu}")
     with torch.inference_mode():
         host = host_breakdown(nets["fold"], x, gpu)
+        # A K3 frame's window: 1216^2 (tile 1024, halo 96).
+        xw = torch.rand((1, 1216, 1216, 1), generator=g).cuda()
+        if not torch.equal(new_route(nets["fold"], xw),
+                           staged_route(nets["fold"], xw)):
+            raise AssertionError("fold at a 1216^2 window: the direct route "
+                                 "differs from the staged route")
+        log(f"fold 1216^2 window bf16: the direct route == the staged route "
+            f"bit for bit | {gpu}")
+    rows.update(handoff_rows(gpu))
     for name, (gap, bf16, _, steps) in gaps.items():
         worst = max((a, r[0], c) for r in steps for c, a in r[1:])
         if worst[0] > STEP_APART_MAX:
@@ -4949,7 +5115,8 @@ def main() -> int:
         check_picks(scores, coords, shape, "main path bf16")
         log(f"main path bf16 {SIZE}^2: {len(scores)} picks, top score "
             f"{scores[0]:.4f}, K1 launches {launches}, conv epilogue "
-            f"launches {epilogue_pick}")
+            f"launches {epilogue_pick[0]}, fold input launches "
+            f"{epilogue_pick[2]}, fold.direct {epilogue_pick[3]}")
 
         # 4. float32 on the card against the CPU; bf16 against float32.
         torch.backends.cudnn.allow_tf32 = False
@@ -5227,9 +5394,10 @@ def main() -> int:
         "source": "spr_pick_tpu_torch/csrc/conv_epilogue.cu",
         "replaces": None,  # XLA fused this glue into the conv on the TPU
         "launches": conv17["launches"],
-        "launches_in_pick": epilogue_pick,
-        "launches_in_denoise": conv17["denoise"],
-        "launches_in_process_table": conv17["process"],
+        "launches_in_pick": epilogue_pick[0],
+        "launches_in_denoise": conv17["denoise"][0],
+        "launches_in_process_table": conv17["process"][0],
+        "fold_direct_in_pick": epilogue_pick[3],
         "shape": "conv output (4, 1024, 1024, 96), blind-spot pad",
         "ms": conv17["rows"][EPILOGUE_CASES[0][0]][0],
         "bound_ms": conv17["rows"][EPILOGUE_CASES[0][0]][1],
@@ -5237,6 +5405,22 @@ def main() -> int:
         "plain_ms": conv17["rows"][EPILOGUE_CASES[0][0]][2],
         "nchw_chain_ms": conv17["rows"][EPILOGUE_CASES[0][0]][3],
         "launch_us_ctypes": conv17["host"]["ctypes launch us"],
+        "handoffs": [dict(zip(("name", "ms", "bound_ms", "plain_ms"),
+                              (label,) + conv17["rows"][label][:3]))
+                     for label, *_ in HANDOFF_CASES],
+    }, {
+        "name": "fold input",
+        "route": "cuda",
+        "source": "spr_pick_tpu_torch/csrc/conv_epilogue.cu",
+        "replaces": None,  # XLA fused the input's rotations on the TPU
+        "launches_in_pick": epilogue_pick[2],
+        "launches_in_denoise": conv17["denoise"][2],
+        "launches_in_process_table": conv17["process"][2],
+        "shape": FOLD_INPUT_LABEL,
+        "ms": conv17["rows"][FOLD_INPUT_LABEL][0],
+        "bound_ms": conv17["rows"][FOLD_INPUT_LABEL][1],
+        "bound_by": "bytes",
+        "plain_ms": conv17["rows"][FOLD_INPUT_LABEL][2],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,20 +25,26 @@ the flax paths (`weights.py`).
 
 Two routes run the same layers.  An inference forward in bf16 (gradients
 off: `steps.eval_step`, the `Picker`, validation passes) takes the
-channels-last route (`backbone_cl`, `head_cl`): every activation is NHWC;
-each conv step is one cuDNN conv (VALID) on an already padded bf16 buffer
-and one epilogue (`ops/conv_epilogue.py`: bias, LeakyReLU and the next
-conv's zero pad in one pass), with the same two bf16 roundings as the
-other route; the last conv (96 -> out) adds its bias in plain PyTorch.
-Everything else, training (autograd) and float32, takes the NCHW route of
-`ShiftConv` (pad, conv, bias add, LeakyReLU) unchanged.  An inference
-forward adds its conv steps to counter ``conv.fused`` (the channels-last
-route: one epilogue launch a step but the last conv's) or ``conv.plain``.
+channels-last route (`backbone_cl`, `rot4_fold_cl`, `head_cl`): every
+activation is NHWC; each conv step is one cuDNN conv (VALID) on an already
+padded bf16 buffer and one epilogue (`ops/conv_epilogue.py`: bias, LeakyReLU
+and the hand-off, written into the consuming conv's padded buffer: the
+blind-spot shift, the pool, the upsample into the decoder's concatenation,
+the skip's slot of it, the rot4 fold's un-rotation), with the same two bf16
+roundings as the other route; the last conv (96 -> out) adds its bias in
+plain PyTorch.  Everything else, training (autograd) and float32, takes the
+NCHW route of `ShiftConv` (pad, conv, bias add, LeakyReLU) unchanged.  An
+inference forward adds its conv steps to counter ``conv.fused`` (the
+channels-last route: one epilogue launch a step but the last conv's) or
+``conv.plain``.  Each destination a producer writes in a conv's input
+buffer adds to ``fold.direct`` (`ops/conv_epilogue.py` counts it at the
+launch); each conv input a copy pass of its own writes adds to
+``fold.staged`` (the NCHW route's pads, the two-lane fold's un-rotation).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -55,7 +61,13 @@ from spr_pick_tpu_torch.models.blindspot import (
     shift_down,
     upsample_nearest_2x,
 )
-from spr_pick_tpu_torch.ops.conv_epilogue import NO_PAD, Pad, conv_epilogue
+from spr_pick_tpu_torch.ops.conv_epilogue import (
+    NO_PAD,
+    Pad,
+    Slot,
+    conv_epilogue,
+    fold_input,
+)
 from spr_pick_tpu_torch.utils import profiling
 
 ENC_FEATURES = 48  # encoder width, every level
@@ -183,70 +195,96 @@ class BlindspotUNet(nn.Module):
     def count_steps(self, fused: bool, backbones: int) -> None:
         """Counters ``conv.fused`` and ``conv.plain`` of an inference
         forward that ran the backbone ``backbones`` times and the head
-        once; a forward with gradients counts nothing."""
+        once; on the NCHW route each step's input is `F.pad`'s copy, one
+        ``fold.staged`` each.  A forward with gradients counts nothing."""
         if torch.is_grad_enabled():
             return
         steps = backbones * self.backbone_steps + self.head_steps
         profiling.count("conv.fused", steps if fused else 0)
         profiling.count("conv.plain", 0 if fused else steps)
+        if not fused:
+            profiling.count("fold.staged", steps)
 
     def _conv_cl(self, name: str, xp: torch.Tensor) -> torch.Tensor:
         """Conv ``name`` (VALID, bf16, no bias) of the padded NHWC buffer
         ``xp``: cuDNN reads and writes channels-last, NHWC out."""
         w = getattr(self, name).conv.weight
         if w.shape[1] < xp.shape[3]:
-            # Zero input channels (`_padded_cat`'s), zero weights.
+            # Zero input channels (`fold_input`'s), zero weights.
             w = F.pad(w, (0, 0, 0, 0, 0, xp.shape[3] - w.shape[1]))
         # The cast and the re-layout in one copy.
         w = w.to(torch.bfloat16, memory_format=torch.channels_last)
         return F.conv2d(xp.permute(0, 3, 1, 2), w).permute(0, 2, 3, 1)
 
-    def _step_cl(self, name: str, xp: torch.Tensor, pad: Pad) -> torch.Tensor:
+    def _step_cl(self, name: str, xp: torch.Tensor, pad: Pad,
+                 **handoff) -> torch.Tensor:
         """One conv step: `_conv_cl`, then the epilogue, which writes the
         input of the step that consumes it, padded by ``pad`` (the epilogue
-        rounds the float32 bias to bf16 itself)."""
+        rounds the float32 bias to bf16 itself); ``handoff``: the
+        epilogue's hand-off, shift and destinations (`conv_epilogue`)."""
         return conv_epilogue(self._conv_cl(name, xp),
                              getattr(self, name).conv.bias, pad,
-                             _slope_in(0.1, torch.bfloat16))
+                             _slope_in(0.1, torch.bfloat16), **handoff)
 
-    def _pool_cl(self, h: torch.Tensor) -> torch.Tensor:
-        if self.blindspot:
-            h = shift_down(h, 1, h_dim=1)
-        return F.max_pool2d(h.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+    def _backbone_cl(self, x: torch.Tensor, rot4: bool) -> torch.Tensor:
+        """`backbone` on the channels-last route, every hand-off written by
+        its producer into the consuming conv's padded buffer: the input
+        launch (rot4: the four rotations as lanes) into enc1_conv0's and
+        dec_final_conv0's; each pool (after the blind-spot shift) into the
+        next encoder conv's and its skip's slot of the decoder stage's
+        concatenation; each upsample into the next stage's concatenation;
+        the last step's shifted output as it is, or (rot4) un-rotated into
+        the head's (B, H, W, 4 * 96) input."""
+        p3, enc, dec, levels = (self.pad3, ENC_FEATURES, DEC_FEATURES,
+                                self.levels)
+        n, height, width, cin = x.shape
+        lanes = 4 * n if rot4 else n
+
+        def buffer(pools: int, channels: int) -> torch.Tensor:
+            """A 3x3 conv's padded input buffer, ``pools`` pools down."""
+            return torch.empty(
+                (lanes, (height >> pools) + p3[0] + p3[1],
+                 (width >> pools) + p3[2] + p3[3], channels),
+                dtype=torch.bfloat16, device=x.device)
+
+        # Decoder stage s reads [upsample, skip] at levels - 1 - s pools;
+        # dec_final_conv0 reads [upsample, x].  Widths a tensor-core conv
+        # of cuDNN reads without a pass of its own (measured on the H100 at
+        # 1024^2): one input channel is carried as 8 (zeros), 96 + 1 as 128;
+        # the weights get zeros too.
+        cats = [buffer(levels - 1 - s, (enc if s == 0 else dec) + enc)
+                for s in range(levels - 1)]
+        cats.append(buffer(0, -(-(dec + cin) // 32) * 32))
+        h = fold_input(x, p3, -(-cin // 8) * 8, Slot(cats[-1], p3, dec),
+                       rot4)
+        h = self._step_cl("enc1_conv0", h, p3)
+        for i in range(1, levels + 1):
+            s = levels - 1 - i  # the decoder stage that reads this skip
+            skip = (Slot(cats[s], p3, enc if s == 0 else dec) if s >= 0
+                    else None)
+            h = self._step_cl("enc1_conv1" if i == 1 else f"enc{i}_conv0", h,
+                              p3, handoff="pool", shift=self.blindspot,
+                              skip=skip)
+        self._step_cl("enc_bottom_conv0", h, p3, handoff="upsample",
+                      out=cats[0])
+        for s in range(levels - 1):
+            h = self._step_cl(f"dec{s}_conv0", cats[s], p3)
+            self._step_cl(f"dec{s}_conv1", h, p3, handoff="upsample",
+                          out=cats[s + 1])
+        h = self._step_cl("dec_final_conv0", cats[-1], p3)
+        return self._step_cl("dec_final_conv1", h, NO_PAD,
+                             handoff="unrotate" if rot4 else "copy",
+                             shift=self.blindspot)
 
     def backbone_cl(self, x: torch.Tensor) -> torch.Tensor:
         """`backbone` on the channels-last route: NHWC lanes (any float
         dtype) in, NHWC bf16 out."""
-        p3 = self.pad3
-        skips = []
-        # Widths a tensor-core conv of cuDNN reads without a pass of its
-        # own (measured on the H100 at 1024^2): one input channel is
-        # carried as 8 (zeros), 96 + 1 as 128; the weights get zeros too.
-        h = self._step_cl("enc1_conv0", _padded_cat([x], p3, multiple=8), p3)
-        h = self._pool_cl(self._step_cl("enc1_conv1", h, NO_PAD))
-        skips.append(h)
-        for i in range(2, self.levels + 1):
-            h = self._step_cl(f"enc{i}_conv0", _padded_cat([h], p3), NO_PAD)
-            h = self._pool_cl(h)
-            skips.append(h)
-        h = self._step_cl("enc_bottom_conv0", _padded_cat([h], p3), NO_PAD)
-
-        h = _upsample_cl(h)
-        for stage, skip in enumerate(reversed(skips[:-1])):
-            h = self._step_cl(f"dec{stage}_conv0",
-                              _padded_cat([h, skip], p3), p3)
-            h = _upsample_cl(self._step_cl(f"dec{stage}_conv1", h, NO_PAD))
-        h = self._step_cl("dec_final_conv0",
-                          _padded_cat([h, x], p3, multiple=32), p3)
-        h = self._step_cl("dec_final_conv1", h, NO_PAD)
-        if self.blindspot:
-            h = shift_down(h, 1, h_dim=1)
-        return h
+        return self._backbone_cl(x, rot4=False)
 
     def rot4_fold_cl(self, x: torch.Tensor) -> torch.Tensor:
         """`rot4_fold` on the channels-last route: NHWC (B, H, W, in) in,
         (B, H, W, 4 * 96) bf16 out."""
-        return rot4_unstack(self.backbone_cl(rot4_stack(x)))
+        return self._backbone_cl(x, rot4=True)
 
     def head_cl(self, h: torch.Tensor) -> torch.Tensor:
         """`head` on the channels-last route: NHWC in, NHWC float32 out.
@@ -256,38 +294,3 @@ class BlindspotUNet(nn.Module):
         h = self._step_cl("out_block_conv1", h, NO_PAD)
         bias = self.out_conv.conv.bias.to(torch.bfloat16)
         return (self._conv_cl("out_conv", h) + bias).float()
-
-
-def _padded_cat(parts: List[torch.Tensor], pad: Pad,
-                multiple: int = 1) -> torch.Tensor:
-    """The channel concatenation of NHWC ``parts``, cast to bf16, inside a
-    zero pad of ``pad``: the input buffer of a conv fed by a pool, an
-    upsample or a skip rather than by an epilogue.  Only the border is
-    zero-filled; ``multiple``: zero channels after the parts up to a
-    multiple of it."""
-    n, h, w = parts[0].shape[:3]
-    c = sum(p.shape[3] for p in parts)
-    cp = -(-c // multiple) * multiple
-    top, bottom, left, right = pad
-    buf = torch.empty((n, h + top + bottom, w + left + right, cp),
-                      dtype=torch.bfloat16, device=parts[0].device)
-    buf[:, :top].zero_()
-    buf[:, top + h:].zero_()
-    inner = buf[:, top:top + h]
-    inner[:, :, :left].zero_()
-    inner[:, :, left + w:].zero_()
-    inner = inner[:, :, left:left + w]
-    inner[..., c:].zero_()
-    at = 0
-    for p in parts:
-        inner[..., at:at + p.shape[3]].copy_(p)
-        at += p.shape[3]
-    return buf
-
-
-def _upsample_cl(h: torch.Tensor) -> torch.Tensor:
-    """Nearest-neighbour 2x upsample of NHWC ``h``, NHWC out (exact: each
-    pixel copied)."""
-    n, hh, ww, c = h.shape
-    return h[:, :, None, :, None, :].expand(n, hh, 2, ww, 2, c).reshape(
-        n, 2 * hh, 2 * ww, c)

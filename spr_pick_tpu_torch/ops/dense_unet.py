@@ -15,7 +15,9 @@ inputs (H != W) take a two-lane fold: rot0/180 as one (2B, H, W) batch and
 rot90/270 as a (2B, W, H) batch, un-rotated and channel-concatenated in the
 order (0, 90, 180, 270).  Both folds run on the module's route
 (`BlindspotUNet.fused_route`): NHWC on the channels-last route, NCHW on
-the other.
+the other.  On the channels-last route the rot4 fold's backbone writes the
+head's input itself, un-rotated; the two-lane fold's un-rotation and
+concatenation stay PyTorch copies (one ``fold.staged``: the head's input).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 
 from spr_pick_tpu_torch.models.blindspot import rotate
 from spr_pick_tpu_torch.models.unet import BlindspotUNet
+from spr_pick_tpu_torch.utils import profiling
 
 
 def dense_blindspot_unet(unet: BlindspotUNet, x: torch.Tensor,
@@ -58,6 +61,8 @@ def dense_blindspot_unet(unet: BlindspotUNet, x: torch.Tensor,
             dim=c_dim,
         )
         backbones = 2
+        if fused:
+            profiling.count("fold.staged")
     out = head(cat)
     unet.count_steps(fused, backbones)
     return out if fused else out.permute(0, 2, 3, 1)

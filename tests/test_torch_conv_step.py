@@ -236,7 +236,8 @@ def test_channels_last_route_matches_nchw_route(case):
 
 def test_counters_land_on_the_root_span():
     """One fold and one sigma-net forward under one root span: the
-    counters of both forwards are the root's attributes."""
+    counters of both forwards (their conv steps and the destinations their
+    launches wrote) are the root's attributes."""
     fold, sigma = _net(True, 5, 2, seed=1), _net(False, 3, 1, seed=2)
     x = torch.rand(1, 32, 32, 1)
     with torch.inference_mode():
@@ -244,7 +245,8 @@ def test_counters_land_on_the_root_span():
             dense_blindspot_unet(fold, x)
             sigma(x)
     root = [r for r in profiling.spans() if r.name == "test.conv.root"][-1]
-    assert root.attrs == {"conv.fused": 34, "conv.plain": 0}
+    assert root.attrs == {"conv.fused": 34, "conv.plain": 0,
+                          "fold.direct": 42}
 
 
 @pytest.mark.parametrize("case", ["grad", "float32"])
